@@ -9,9 +9,12 @@ The main path is the paper's contribution, a CNN forward through fused conv
 pyramids: the zoo graph (``repro_torch.net.graph``), the auto-partitioner's
 cuts (``repro_torch.net.partition.auto_partition``) and the plan-driven
 ``repro_torch.net.runner.run_network``, one hand-written CUDA pyramid kernel
-launch per pyramid.  Phases, any failure exits non-zero:
+launch per pyramid.  The second path is the paper's other half, the
+digit-serial sum of products with Early Negative Detection
+(``repro_torch.kernels.online_sop.online_sop_end``) on VGG-16's first two
+conv layers.  Phases, any failure exits non-zero:
 
-1. build  — compile every kernel of the path from ``src/repro_torch/csrc``
+1. build  — compile every kernel of both paths from ``src/repro_torch/csrc``
    (one nvcc per source, started together); print the card's name and
    power limit, torch, CUDA and nvcc versions.
 2. pyramids — for every pyramid of the four plans below, the kernel against
@@ -26,9 +29,24 @@ launch per pyramid.  Phases, any failure exits non-zero:
    on the card (f32 within ``_tol``, bf16 within ``bf16_logit_tol``), with
    every kernel's launch count reset just before each forward and checked
    just after against that forward's plan.
-4. results — one ``{"kernels": [...]}`` line (``launches`` sums the four
-   forwards, ``launches_per_forward`` splits it; every time sums the
-   per-launch medians over the dense pyramids of the four plans), then the
+4. sop — the windows of VGG-16 ``CONV1`` (of the VGG image above) and
+   ``CONV2`` (of ``relu(CONV1)``) at 224², P = 50,176 each, scaled by one
+   power of two into (-1, 1), through ``online_sop_end`` once per filter
+   (64 per layer, 16 digits), with the launch counts reset just before and
+   checked just after (128, all through the kernel).  Checked: ``sop``
+   times the scale equals the layer's pre-bias convolution; the kernel
+   equals its plain version (``sop`` within 1e-5 relative, cycles and
+   flags equal except at printed near-ties, see ``latch_disagreements``);
+   no flagged row has ``sop >= 0``.  Every filter's launch is timed, and
+   every filter's plain version as it is checked; per-layer END shares are
+   printed beside the paper's Fig. 12.
+5. results — one ``{"kernels": [...]}`` line (for the pyramid kernels
+   ``launches`` sums the four forwards, ``launches_per_forward`` splits
+   it, and every time sums the per-launch medians over the dense pyramids
+   of the four plans; for the SOP kernel ``launches_per_layer`` splits
+   the 128 and every time is measured over all 128 launches: the median
+   of a layer's 64 launches timed as one span, or the sum of the 64 plain
+   calls' single timed spans, summed over the two layers), then the
    ``{"ok": true, "device": ...}`` line last.
 
 Weights and inputs are random, made from fixed seeds.  The script imports
@@ -57,7 +75,13 @@ CONFIGS = (
 )
 INPUT_SIZE = 224
 NUM_CLASSES = 1000
-SOURCE = "src/repro_torch/csrc/fused_pyramid.cu"
+# the SOP + END path: the VGG-16 forward whose image and params it reuses,
+# its layers (VGG_FUSION's first two conv levels) and digits
+SOP_RUN = "vgg16/float32/b1"
+SOP_LEVELS = (0, 1)
+SOP_DIGITS = 16
+# the paper's Fig. 12 END shares for VGG-16, printed beside this run's
+PAPER_VGG_END = "detected 41.08%, undetermined about 2.2%"
 
 # published H100 SXM peaks (dense): HBM bytes/s, float32 outside the
 # tensor cores, bf16 on the tensor cores
@@ -372,17 +396,18 @@ class Smoke:
         """Every forward of the main path once, each counted on its own
         against its plan; then checked.  Returns each kernel's launches
         summed over the forwards."""
+        from repro_torch.kernels import build
         from repro_torch.kernels.fused_conv import fused_conv as fc
         from repro_torch.net.runner import run_network
 
         totals = {k.symbol: 0 for k in fc.KERNELS}
         for run in self.runs:
-            fc.reset_launch_counts()
+            build.reset_launch_counts()
             run["logits"], run["skips"] = run_network(
                 run["x"], run["prepared"], plan=run["plan"]
             )
-            counts = {k.symbol: k.launches for k in fc.KERNELS}
-            expect = {k.symbol: 0 for k in fc.KERNELS}
+            counts = {k.symbol: k.launches for k in build.KERNELS}
+            expect = {k.symbol: 0 for k in build.KERNELS}
             for pyr in run["plan"].pyramids:
                 expect[(fc.PYRAMID_KTILED if pyr.launch.c_tiles > 1
                         else fc.PYRAMID).symbol] += 1
@@ -390,8 +415,8 @@ class Smoke:
                 raise AssertionError(f"{run['key']}: launch counts {counts}"
                                      f" != its plan's {expect}")
             run["launches"] = counts
-            for sym, n in counts.items():
-                totals[sym] += n
+            for sym in totals:
+                totals[sym] += counts[sym]
         self.torch.cuda.synchronize()
         if any(v == 0 for v in totals.values()):
             raise AssertionError(f"a kernel of the path never ran: {totals}")
@@ -427,6 +452,194 @@ class Smoke:
                 "ms", "call_ms", "bound_ms", "plain_ms", "library_ms")},
         )
         print("end to end " + json.dumps(run["summary"]), flush=True)
+
+    # ---- phase 4 ----------------------------------------------------------
+
+    def sop_layers(self) -> list[dict]:
+        """Per layer of the SOP path: its scaled windows ``x`` (P, m), the
+        power of two ``e`` they were scaled by, the filters ``ys`` (Cout,
+        m) in the windows' ``(Cin, K, K)`` order, and the layer's pre-bias
+        convolution ``ref`` (P, Cout) on the card."""
+        import math
+
+        from repro_torch.core.cnn_models import VGG_FUSION
+        from repro_torch.core.executor import (
+            conv2d_nhwc,
+            conv_windows,
+            full_fp32,
+        )
+
+        torch = self.torch
+        run = next(r for r in self.runs if r["key"] == SOP_RUN)
+        spec = VGG_FUSION
+        if spec.input_size != INPUT_SIZE:
+            raise AssertionError(f"VGG_FUSION is at {spec.input_size}²")
+        layers, a = [], run["x"]
+        with full_fp32():
+            for level in SOP_LEVELS:
+                lvl = spec.levels[level]
+                w, b = run["params"][lvl.name]
+                win = conv_windows(a, spec, level)[0][0]
+                e = math.floor(math.log2(float(win.abs().max()))) + 1
+                layers.append(dict(
+                    name=lvl.name, e=e,
+                    x=(win * 2.0 ** -e).contiguous(),
+                    # HWIO -> (Cout, Cin, K, K): the windows' feature order
+                    ys=w.permute(3, 2, 0, 1).reshape(lvl.n_out, -1)
+                    .contiguous(),
+                    ref=conv2d_nhwc(a, w, None, lvl.S, lvl.pad)
+                    .reshape(-1, lvl.n_out),
+                ))
+                a = torch.relu(conv2d_nhwc(a, w, b, lvl.S, lvl.pad))
+        return layers
+
+    def phase_sop(self) -> dict:
+        """The SOP + END path once (one call per filter of each layer),
+        counted; then checked against the convolution and the plain
+        version, and timed.  Returns the kernel's entry of the kernels
+        line."""
+        from repro_torch.kernels import build
+        from repro_torch.kernels.online_sop import online_sop as tos
+        from repro_torch.kernels.online_sop import online_sop_end
+
+        torch = self.torch
+        layers = self.sop_layers()
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        for lay in layers:
+            lay["out"] = [online_sop_end(lay["x"], y, SOP_DIGITS)
+                          for y in lay["ys"]]
+        counts = {k.symbol: k.launches for k in build.KERNELS}
+        torch.cuda.synchronize()
+        n_filters = sum(len(lay["ys"]) for lay in layers)
+        expect = {k.symbol: 0 for k in build.KERNELS}
+        expect[tos.SOP_END.symbol] = n_filters
+        if counts != expect:
+            raise AssertionError(f"sop: launch counts {counts} != {expect}")
+        st = dict(max_abs_err=0.0, near_ties=0, ms=0.0, call_ms=0.0,
+                  plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+                  layers=[])
+        for lay in layers:
+            row = self.check_sop_layer(lay, tos)
+            row.update(self.time_sop_layer(lay, tos))
+            for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bytes_ms",
+                      "ops_ms"):
+                st[k] += row[k]
+            st["max_abs_err"] = max(st["max_abs_err"], row["max_abs_err"])
+            st["near_ties"] += row["near_ties"]
+            st["layers"].append(row)
+            print("sop " + json.dumps(row), flush=True)
+        self.sop_rows = st["layers"]
+        return dict(
+            name=tos.SOP_END.symbol, route="cuda", source=tos.SOP_END.source,
+            replaces=tos.SOP_END.replaces,
+            launches=counts[tos.SOP_END.symbol],
+            launches_per_layer={r["layer"]: r["launches"]
+                                for r in st["layers"]},
+            max_abs_err=st["max_abs_err"], ms=st["ms"], call_ms=st["call_ms"],
+            plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+            bound_by="bytes" if st["bytes_ms"] >= st["ops_ms"]
+            else "operations",
+            # no single PyTorch call computes termination cycles
+            library_ms=None, near_ties=st["near_ties"],
+        )
+
+    def check_sop_layer(self, lay, tos) -> dict:
+        """The layer's checks, raising on failure; returns its END shares,
+        its kernel-vs-plain figures and ``plain_ms``, the sum of its plain
+        calls' device times (each one span behind a spin, after one
+        untimed warm-up call)."""
+        torch = self.torch
+        name, x = lay["name"], lay["x"]
+        sop = torch.stack([o[0] for o in lay["out"]], dim=1)  # (P, Cout)
+        cyc = torch.stack([o[1] for o in lay["out"]], dim=1)
+        det = torch.stack([o[2] for o in lay["out"]], dim=1)
+        ref = lay["ref"]
+        err = float((sop * 2.0 ** lay["e"] - ref).abs().max())
+        tol = 1e-4 * max(1.0, float(ref.abs().max()))
+        if not err <= tol:
+            raise AssertionError(f"sop {name}: sop * 2^{lay['e']} is {err}"
+                                 f" from the convolution (tol {tol})")
+        if bool((det & (sop >= 0)).any()):
+            raise AssertionError(f"sop {name}: a detected row has sop >= 0")
+        max_err, ties, plain_ms = 0.0, 0, 0.0
+        tos.online_sop_end_plain(x, lay["ys"][0], SOP_DIGITS)
+        for f, (y, got) in enumerate(zip(lay["ys"], lay["out"])):
+            torch.cuda._sleep(SPIN_CYCLES)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            plain = tos.online_sop_end_plain(x, y, SOP_DIGITS)
+            b.record()
+            b.synchronize()
+            plain_ms += a.elapsed_time(b)
+            e = float((got[0] - plain[0]).abs().max())
+            if not e <= 1e-5 * max(1.0, float(got[0].abs().max())):
+                raise AssertionError(f"sop {name} filter {f}: sop differs"
+                                     f" from the plain version by {e}")
+            max_err = max(max_err, e)
+            rows, margins, tie = tos.latch_disagreements(x, y, SOP_DIGITS,
+                                                         got, plain)
+            for r, mg in zip(rows.tolist(), margins.tolist()):
+                print(f"sop {name} filter {f} row {r}: cycle/flag"
+                      f" {int(got[1][r])}/{bool(got[2][r])} vs plain"
+                      f" {int(plain[1][r])}/{bool(plain[2][r])}, margin {mg}"
+                      f" (near-tie band {tie})", flush=True)
+                if not mg <= tie:
+                    raise AssertionError(f"sop {name} filter {f} row {r}:"
+                                         " END differs beyond a near-tie")
+            ties += len(rows)
+        neg = sop < 0
+        return dict(
+            layer=name, launches=len(lay["out"]), P=x.shape[0], m=x.shape[1],
+            scale_exp=lay["e"], conv_max_abs_err=err, conv_tol=tol,
+            max_abs_err=max_err, near_ties=ties, plain_ms=plain_ms,
+            negative_share=float(neg.float().mean()),
+            detected_share=float(det.float().mean()),
+            undetermined_share=float((neg & ~det).float().mean()),
+            mean_detect_cycle=float(cyc[det].float().mean())
+            if bool(det.any()) else float(SOP_DIGITS),
+            paper_fig12_vgg=PAPER_VGG_END,
+        )
+
+    def time_sop_layer(self, lay, tos) -> dict:
+        """The layer's 64 launches, timed as one span (median of the
+        spans): the bare kernel into buffers made beforehand, behind a
+        spin, and the wrapper call as the path makes it (no spin); and the
+        bound of the 64."""
+        from repro_torch.kernels.online_sop import online_sop_end
+
+        torch = self.torch
+        x, ys = lay["x"], lay["ys"]
+        P, m = x.shape
+        sop = torch.empty(P, dtype=torch.float32, device=self.device)
+        cyc = torch.empty(P, dtype=torch.int32, device=self.device)
+        det = torch.empty(P, dtype=torch.bool, device=self.device)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def bare():
+            for y in ys:
+                tos.launch(x, y, sop, cyc, det, SOP_DIGITS, stream=stream)
+
+        ms = _median_ms(bare, torch)
+        got = lay["out"][-1]
+        if not (torch.equal(sop, got[0]) and torch.equal(cyc, got[1])
+                and torch.equal(det, got[2])):
+            raise AssertionError(f"sop {lay['name']}: the bare launch"
+                                 " disagrees with the wrapper's")
+        call_ms = _median_ms(
+            lambda: [online_sop_end(x, y, SOP_DIGITS) for y in ys], torch,
+            spin=False)
+        # per launch, each input read once, each output written once; a
+        # d*y multiply-add per element and digit plus the x*y one
+        nbytes = len(ys) * ((x.numel() + m) * 4 + P * (4 + 4 + 1))
+        ops = len(ys) * 2 * P * m * (SOP_DIGITS + 1)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_FLOPS["float32"] * 1e3
+        return dict(ms=ms, call_ms=call_ms,
+                    bytes_ms=bytes_ms, ops_ms=ops_ms,
+                    bound_ms=max(bytes_ms, ops_ms),
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def _forward_ms(run, torch) -> float:
@@ -486,11 +699,12 @@ def main(argv=None) -> int:
         smoke = Smoke(device)
         smoke.phase_pyramids()
         counts = smoke.phase_end_to_end()
+        sop = smoke.phase_sop()
         kernels = []
         for k in fc.KERNELS:
             st = smoke.stats[k.symbol]
             kernels.append(dict(
-                name=k.symbol, route="cuda", source=SOURCE,
+                name=k.symbol, route="cuda", source=k.source,
                 replaces=k.replaces, launches=counts[k.symbol],
                 launches_per_forward={r["key"]: r["launches"][k.symbol]
                                       for r in smoke.runs},
@@ -501,12 +715,14 @@ def main(argv=None) -> int:
                           else "operations"),
                 library_ms=st["library_ms"],
             ))
+        kernels.append(sop)
         if args.out is not None:
             args.out.parent.mkdir(parents=True, exist_ok=True)
             args.out.write_text(json.dumps(dict(
                 card=_smi(), kernels=kernels,
                 pyramids={s: v["rows"] for s, v in smoke.stats.items()},
                 end_to_end=[r["summary"] for r in smoke.runs],
+                sop=smoke.sop_rows,
                 seconds=time.perf_counter() - t0,
             ), indent=1))
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,14 +1,22 @@
-"""USEFUSE cycle model of one fused launch (paper §4.2, Eq. (3)).
+"""USEFUSE cycle / performance models (paper §4.2, Eqs. (2)-(4)).
 
-The part of the reference package's ``repro.core.cycle_model`` that the
-launch planner uses: :meth:`~repro_torch.core.program.LaunchPlan.modeled_cycles`
-composes these per-movement DS-1 cycles with the weight/input DMA overlap
-models, and the partition DP breaks ties on the result, so every formula
-here must match the reference exactly for the port to pick the same plans.
-The cycles model the paper's 100 MHz digit-serial accelerator, not the
-H100.  The reference's DS-2, baseline and Eq. (2) design models, the
-serving-stage models and the timeline twins are not ported yet (ROADMAP
-queue 1 items 7, 9 and 11).
+The port of the reference package's ``repro.core.cycle_model``, minus its
+launch-timeline twins and serving-stage models (ROADMAP queue 1 items 9 and
+11).  The cycles model the paper's 100 MHz digit-serial accelerator, not
+the H100.
+
+* Eq. (3) DS-1 spatial and Eq. (4) DS-2 temporal per-movement cycles; the
+  launch planner's :meth:`~repro_torch.core.program.LaunchPlan.modeled_cycles`
+  composes the DS-1 cycles with the weight/input DMA overlap models below,
+  and the partition DP breaks ties on the result, so every formula here
+  must match the reference exactly for the port to pick the same plans.
+* The conventional bit-serial baselines (spatial, Fig. 8; temporal,
+  Fig. 9), under the reference's documented assumptions: an n-cycle
+  serial-parallel multiplier, pipelined adder trees at one cycle per level,
+  no cross-layer digit overlap (n paid per level); temporal WPUs re-use one
+  multiplier per window, ``K*K * (n + acc)`` cycles.
+* Eq. (2): :func:`evaluate_design` and :func:`single_layer_result`, the
+  duration and performance rows of the paper's Tables 1-2.
 """
 
 from __future__ import annotations
@@ -17,7 +25,7 @@ import math
 from dataclasses import dataclass
 
 from .dtypes import mxu_throughput
-from .fusion import FusionSpec
+from .fusion import FusionPlan, FusionSpec
 
 
 def _log2c(x: int) -> int:
@@ -31,7 +39,7 @@ class ArithParams:
     n: int = 8  # input precision (bits)
     delta_olm: int = 2  # online multiplier delay
     delta_ola: int = 2  # online adder delay
-    acc: int = 1  # accumulator cycles per add (DS-2, Eq. 4; kept for parity)
+    acc: int = 1  # accumulator cycles per add (DS-2, Eq. 4)
     mp_cycles: int = 2  # cycles per maxpool stage (MP term)
     freq_mhz: float = 100.0
 
@@ -70,6 +78,27 @@ def ds1_cycles_per_movement(spec: FusionSpec, p: ArithParams = DEFAULT_PARAMS,
         lk = _log2c(conv.K * conv.K)
         ln = _log2c(conv.n_in)
         total += p.delta_olm + p.delta_ola * lk + p.delta_ola * ln + lk + ln
+        if pool is not None and include_pool:
+            total += p.mp_cycles
+    return total + p.n
+
+
+def ds2_cycles_per_movement(spec: FusionSpec, p: ArithParams = DEFAULT_PARAMS,
+                            *, include_pool: bool = True) -> int:
+    """Per-movement cycles of Eq. (4) (temporal design, one OLM per window).
+
+    Per conv level: (delta_OLM + (n-1) + Acc) * K^2  — the single online
+    multiplier is drained K^2 times into the accumulation buffer — plus the
+    channel adder tree terms and MP; single trailing ``n``.
+    """
+    total = 0
+    for conv, pool in _levels_with_pools(spec):
+        if conv is None:
+            total += p.mp_cycles if include_pool else 0
+            continue
+        ln = _log2c(conv.n_in)
+        total += (p.delta_olm + (p.n - 1) + p.acc) * conv.K * conv.K
+        total += p.delta_ola * ln + ln
         if pool is not None and include_pool:
             total += p.mp_cycles
     return total + p.n
@@ -181,3 +210,130 @@ def grid_pipeline_cycles(
     if not pipelined or cells <= 1:
         return cells * (body + input_dma)
     return input_dma + body + (cells - 1) * max(body, input_dma)
+
+
+# ---------------------------------------------------------------------------
+# Baseline models (documented assumptions in module docstring)
+# ---------------------------------------------------------------------------
+
+
+def conv_baseline_spatial_cycles_per_movement(
+    spec: FusionSpec, p: ArithParams = DEFAULT_PARAMS, *, include_pool: bool = True
+) -> int:
+    """Conventional bit-serial, spatial WPU (Fig. 8): n paid per level."""
+    total = 0
+    for conv, pool in _levels_with_pools(spec):
+        if conv is None:
+            total += p.mp_cycles if include_pool else 0
+            continue
+        lk = _log2c(conv.K * conv.K)
+        ln = _log2c(conv.n_in)
+        total += p.n + lk + ln
+        if pool is not None and include_pool:
+            total += p.mp_cycles
+    return total
+
+
+def conv_baseline_temporal_cycles_per_movement(
+    spec: FusionSpec, p: ArithParams = DEFAULT_PARAMS, *, include_pool: bool = True
+) -> int:
+    """Conventional bit-serial, temporal WPU (Fig. 9)."""
+    total = 0
+    for conv, pool in _levels_with_pools(spec):
+        if conv is None:
+            total += p.mp_cycles if include_pool else 0
+            continue
+        ln = _log2c(conv.n_in)
+        total += (p.n + p.acc) * conv.K * conv.K + ln
+        if pool is not None and include_pool:
+            total += p.mp_cycles
+    return total
+
+
+# ---------------------------------------------------------------------------
+# End-to-end duration / performance (Eq. (2))
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class DesignResult:
+    name: str
+    cycles: int
+    duration_us: float
+    ops: int
+    gops: float
+    alpha: int
+
+
+_PER_MOVEMENT = {
+    "ds1": ds1_cycles_per_movement,
+    "ds2": ds2_cycles_per_movement,
+    "baseline_spatial": conv_baseline_spatial_cycles_per_movement,
+    "baseline_temporal": conv_baseline_temporal_cycles_per_movement,
+}
+
+
+def naive_alpha(plan: FusionPlan) -> int:
+    """Movements when the tile stride equals the conv stride (Baselines 1-2).
+
+    The fusion tile of the FIRST level advances by that level's conv stride,
+    so the pyramid is evaluated once per first-level output position that the
+    tile plan must cover; this is the paper's "tile stride matching the
+    convolution stride" configuration (massively overlapping tiles).
+    """
+    first = plan.spec.levels[0]
+    lvl = plan.levels[0]
+    span = lvl.ifm - lvl.tile
+    return math.ceil(span / first.S) + 1
+
+
+def evaluate_design(
+    design: str,
+    spec: FusionSpec,
+    plan: FusionPlan,
+    ops: int,
+    p: ArithParams = DEFAULT_PARAMS,
+    *,
+    uniform_stride: bool = True,
+) -> DesignResult:
+    """Duration & performance for a design over a fusion plan (Eq. (2))."""
+    per_mv = _PER_MOVEMENT[design](spec, p)
+    alpha = plan.alpha if uniform_stride else naive_alpha(plan)
+    cycles = alpha * alpha * per_mv
+    dur_us = cycles / p.freq_mhz
+    return DesignResult(
+        name=design,
+        cycles=cycles,
+        duration_us=dur_us,
+        ops=ops,
+        gops=ops / (dur_us * 1e3) if dur_us else float("inf"),
+        alpha=alpha,
+    )
+
+
+def single_layer_result(
+    design: str,
+    spec: FusionSpec,
+    plan: FusionPlan,
+    conv_index: int,
+    ops: int,
+    p: ArithParams = DEFAULT_PARAMS,
+) -> DesignResult:
+    """Per-layer rows of Tables 1-2: one conv level evaluated standalone
+    (no pooling epilogue — validated against the paper's CONV1 rows), still
+    executed with the fusion plan's alpha movements.
+    """
+    convs = [l for l in spec.levels if l.kind == "conv"]
+    conv = convs[conv_index]
+    sub = FusionSpec(levels=(conv,), input_size=spec.input_size)
+    per_mv = _PER_MOVEMENT[design](sub, p, include_pool=False)
+    cycles = plan.alpha * plan.alpha * per_mv
+    dur_us = cycles / p.freq_mhz
+    return DesignResult(
+        name=f"{design}/conv{conv_index + 1}",
+        cycles=cycles,
+        duration_us=dur_us,
+        ops=ops,
+        gops=ops / (dur_us * 1e3) if dur_us else float("inf"),
+        alpha=plan.alpha,
+    )

@@ -23,6 +23,7 @@ from __future__ import annotations
 import contextlib
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -92,6 +93,37 @@ def maxpool_nhwc(x: torch.Tensor, k: int, s: int, pad: int = 0) -> torch.Tensor:
     return F.max_pool2d(
         x.permute(0, 3, 1, 2), k, s, padding=pad
     ).permute(0, 2, 3, 1)
+
+
+def conv_windows(
+    x: torch.Tensor, spec: FusionSpec, level: int = 0,
+    max_windows: int | None = None,
+) -> tuple[torch.Tensor, int]:
+    """Extract flattened K*K*N input windows of a conv level (END stats).
+
+    Returns ``(windows, n_windows_per_image)`` with windows shaped
+    ``(B, P, K*K*N)`` where P = number of spatial output positions (possibly
+    subsampled to ``max_windows`` by the reference's ``np.linspace`` pick).
+    The feature order is the reference's: channel slowest, ``(C, K, K)``,
+    not HWIO's ``(K, K, C)``, so a caller that wants the convolution's own
+    outputs flattens its HWIO weights as ``w.permute(2, 0, 1, 3)`` to
+    ``(C, K, K, Cout)`` first.
+    """
+    lvl = spec.levels[level]
+    assert lvl.kind == "conv"
+    p = lvl.pad
+    xp = F.pad(x, (0, 0, p, p, p, p))
+    B, H, _, C = xp.shape
+    out = (H - lvl.K) // lvl.S + 1
+    patches = (
+        xp.unfold(1, lvl.K, lvl.S)
+        .unfold(2, lvl.K, lvl.S)  # (B, out, out, C, K, K)
+    )
+    flat = patches.reshape(B, out * out, C * lvl.K * lvl.K)
+    if max_windows is not None and flat.shape[1] > max_windows:
+        idx = np.linspace(0, flat.shape[1] - 1, max_windows).astype(int)
+        flat = flat[:, torch.from_numpy(idx).to(flat.device), :]
+    return flat, out * out
 
 
 def reference_forward(

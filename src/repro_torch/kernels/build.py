@@ -7,6 +7,11 @@ library's file name carries a hash of its source and flags, so an edited
 source is rebuilt and a stale library is never loaded.  :func:`build`
 starts one ``nvcc`` per source, all at once, and waits for all of them.
 
+:class:`CudaKernel` binds one C entry point of a library and counts its
+launches; every library exports ``<library>_error_string`` to turn a
+returned ``cudaError_t`` into text.  :func:`reset_launch_counts` zeroes the
+count of every kernel of the port.
+
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine without ``nvcc``.
 """
@@ -26,7 +31,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build"
 
 # kernel library name -> its CUDA source under csrc/
-SOURCES: dict[str, str] = {"fused_pyramid": "fused_pyramid.cu"}
+SOURCES: dict[str, str] = {
+    "fused_pyramid": "fused_pyramid.cu",
+    "online_sop": "online_sop.cu",
+}
 
 NVCC_FLAGS: tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -103,6 +111,66 @@ def build(names=None) -> dict[str, str]:
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built first if needed (once per
-    process)."""
+    process), with its ``<name>_error_string`` signature set."""
     build([name])
-    return ctypes.CDLL(str(library_path(name)))
+    lib = ctypes.CDLL(str(library_path(name)))
+    err = getattr(lib, f"{name}_error_string")
+    err.restype = ctypes.c_char_p
+    err.argtypes = [ctypes.c_int]
+    return lib
+
+
+# every kernel of the port, in the order its module created it
+KERNELS: list[CudaKernel] = []
+
+
+class CudaKernel:
+    """One C entry point ``symbol`` of library ``library``, with its
+    ``argtypes``, the TPU kernel it ``replaces`` (file:line) and its launch
+    count.
+
+    ``launches`` is bumped once per successful :meth:`call` (and nowhere
+    else), so a run can show it went through the kernel."""
+
+    def __init__(self, library: str, symbol: str, argtypes: list,
+                 replaces: str):
+        self.library = library
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.replaces = replaces
+        self.launches = 0
+        self._fn = None
+        KERNELS.append(self)
+
+    @property
+    def source(self) -> str:
+        """The kernel's CUDA source, relative to the checkout's root."""
+        return str((CSRC / SOURCES[self.library]).relative_to(_PKG.parents[1]))
+
+    def lib(self) -> ctypes.CDLL:
+        return load(self.library)
+
+    def check(self, rc: int, what: str) -> None:
+        """Raise if a C entry point of the library returned an error."""
+        if rc != 0:
+            msg = getattr(self.lib(), f"{self.library}_error_string")(rc)
+            raise RuntimeError(
+                f"CUDA kernel {self.symbol}: {what} failed: error {rc}"
+                f" ({msg.decode()})"
+            )
+
+    def call(self, *args) -> None:
+        """Launch through the C entry point; raises if it is refused."""
+        if self._fn is None:
+            fn = getattr(self.lib(), self.symbol)
+            fn.restype = ctypes.c_int
+            fn.argtypes = self.argtypes
+            self._fn = fn
+        self.check(self._fn(*args), "launch")
+        self.launches += 1
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for k in KERNELS:
+        k.launches = 0

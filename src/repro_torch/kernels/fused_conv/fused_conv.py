@@ -11,7 +11,9 @@ hand-written CUDA kernels from ``src/repro_torch/csrc/fused_pyramid.cu``:
   ``c_tiles > 1`` output-channel blocks.
 
 Each carries a plain integer ``launches`` count that its wrapper bumps
-where it launches the kernel, and nowhere else.  The source file's header
+where it launches the kernel, and nowhere else
+(:func:`repro_torch.kernels.build.reset_launch_counts` zeroes the counts of
+every kernel of the port).  The source file's header
 says what the kernel computes, what bounds it on the H100 and how its
 design answers that.
 
@@ -52,61 +54,34 @@ _DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 _TILE_M, _TILE_N, _TILE_K = 64, 64, 16
 
 
-class CudaKernel:
-    """One C entry point of a kernel library, with its launch count.
+class PyramidKernel(build.CudaKernel):
+    """One entry point of the ``fused_pyramid`` library: the untiled or the
+    channel-tiled pyramid, with the library's occupancy query."""
 
-    ``launches`` is bumped once per successful launch by :meth:`launch`
-    (and nowhere else), so a run can show it went through the kernel."""
-
-    def __init__(self, library: str, symbol: str, ktiled: bool,
-                 replaces: str):
-        self.library = library
-        self.symbol = symbol
+    def __init__(self, symbol: str, ktiled: bool, replaces: str):
+        # dtype, descriptor, its length, then x, w, b, out, skip, scratch,
+        # partial sums, live flags, barrier and the stream
+        super().__init__(
+            "fused_pyramid", symbol,
+            [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+            + [ctypes.c_void_p] * 10,
+            replaces,
+        )
         self.ktiled = ktiled
-        self.replaces = replaces
-        self.launches = 0
-        self._lib = None
         self._resident: dict[tuple[int, int], int] = {}
-
-    def _bind(self) -> ctypes.CDLL:
-        """The library with the ctypes signatures of its entry points; it
-        is built at first use."""
-        if self._lib is None:
-            lib = build.load(self.library)
-            fn = getattr(lib, self.symbol)
-            fn.restype = ctypes.c_int
-            # dtype, descriptor, its length, then x, w, b, out, skip,
-            # scratch, partial sums, live flags, barrier and the stream
-            fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [
-                ctypes.c_void_p
-            ] * 10
-            lib.fused_pyramid_error_string.restype = ctypes.c_char_p
-            lib.fused_pyramid_error_string.argtypes = [ctypes.c_int]
-            lib.fused_pyramid_resident_blocks.restype = ctypes.c_int
-            lib.fused_pyramid_resident_blocks.argtypes = [
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
-            self._lib = lib
-        return self._lib
-
-    def _check(self, rc: int, what: str) -> None:
-        if rc != 0:
-            msg = self._bind().fused_pyramid_error_string(rc).decode()
-            raise RuntimeError(
-                f"CUDA kernel {self.symbol}: {what} failed: error {rc} ({msg})"
-            )
 
     def resident_blocks(self, dtype_code: int, device: torch.device) -> int:
         """Blocks of this kernel that fit on ``device`` at once — the grid
         of its cooperative launch (cached per device and dtype)."""
         key = (device.index, dtype_code)
         if key not in self._resident:
+            query = self.lib().fused_pyramid_resident_blocks
+            query.restype = ctypes.c_int
+            query.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             blocks = ctypes.c_int(0)
             with torch.cuda.device(device):
-                rc = self._bind().fused_pyramid_resident_blocks(
-                    dtype_code, int(self.ktiled), ctypes.byref(blocks)
-                )
-            self._check(rc, "occupancy query")
+                rc = query(dtype_code, int(self.ktiled), ctypes.byref(blocks))
+            self.check(rc, "occupancy query")
             self._resident[key] = blocks.value
         return self._resident[key]
 
@@ -114,29 +89,19 @@ class CudaKernel:
                stream: int) -> None:
         """Launch on ``stream`` with ``tensors`` = (x, w, b, out, skip,
         scratch, partial, live, barrier); raises if the launch is refused."""
-        fn = getattr(self._bind(), self.symbol)
         arr = (ctypes.c_longlong * len(desc))(*desc)
-        rc = fn(dtype_code, arr, len(desc), *(t.data_ptr() for t in tensors),
-                stream)
-        self._check(rc, "launch")
-        self.launches += 1
+        self.call(dtype_code, arr, len(desc),
+                  *(t.data_ptr() for t in tensors), stream)
 
 
-PYRAMID = CudaKernel(
-    "fused_pyramid", "fused_pyramid", False,
-    "src/repro/kernels/fused_conv/fused_conv.py:154",
+PYRAMID = PyramidKernel(
+    "fused_pyramid", False, "src/repro/kernels/fused_conv/fused_conv.py:154",
 )
-PYRAMID_KTILED = CudaKernel(
-    "fused_pyramid", "fused_pyramid_ktiled", True,
+PYRAMID_KTILED = PyramidKernel(
+    "fused_pyramid_ktiled", True,
     "src/repro/kernels/fused_conv/fused_conv.py:319",
 )
 KERNELS = (PYRAMID, PYRAMID_KTILED)
-
-
-def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
-    for k in KERNELS:
-        k.launches = 0
 
 
 def _check_args(x_padded, weights, biases, program, stream_weights, x_slots,

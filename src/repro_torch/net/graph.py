@@ -30,7 +30,7 @@ one pyramid launch applies a single activation mode.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 from repro_torch.core.dtypes import canonical_dtype
 from repro_torch.core.fusion import FusedLevel, FusionSpec
@@ -410,3 +410,24 @@ MODELS = {
     "vgg16": vgg16,
     "resnet18": resnet18,
 }
+
+
+def backbone_prefix(graph: Graph, n_convs: int) -> FusionSpec:
+    """FusionSpec of the first ``n_convs`` convs (+ interleaved/trailing
+    pools) of the graph's leading fusable segment — how
+    :mod:`repro_torch.core.cnn_models` derives the paper's hand-picked fusion
+    groups from the zoo graphs."""
+    seg = fusable_segments(graph)[0]
+    taken, convs = [], 0
+    for n in seg.nodes:
+        if n.op == "conv":
+            if convs == n_convs:
+                break
+            convs += 1
+        taken.append(n)
+    if convs < n_convs:
+        raise ValueError(
+            f"graph {graph.name}: leading segment has only {convs} convs"
+        )
+    sub = replace(seg, nodes=tuple(taken))
+    return sub.spec()

@@ -1,6 +1,7 @@
-"""The port's CUDA kernel on the card: build, kernel vs its plain PyTorch
-version per pyramid (equal skip maps, outputs within tolerance), and
-run_network on CUDA vs the port's reference_network.
+"""The port's CUDA kernels on the card: build, the pyramid kernel vs its
+plain PyTorch version per pyramid (equal skip maps, outputs within
+tolerance), run_network on CUDA vs the port's reference_network, and the
+SOP + END kernel vs its plain version.
 
 Every test here needs an NVIDIA card with nvcc and skips elsewhere.  Run
 on the card with ``PYTHONPATH=src python -m pytest -m cuda
@@ -17,6 +18,7 @@ from repro_torch.core.program import compile_program  # noqa: E402
 from repro_torch.core.executor import init_pyramid_params  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.fused_conv import fused_conv as fc  # noqa: E402
+from repro_torch.kernels.online_sop import online_sop as tos  # noqa: E402
 from repro_torch.net.graph import MODELS  # noqa: E402
 from repro_torch.net.partition import auto_partition  # noqa: E402
 from repro_torch.obs import tracing  # noqa: E402
@@ -82,8 +84,9 @@ def _tol(ref, dtype):
 
 def test_library_builds(cuda):
     reports = build.build()
-    print(reports["fused_pyramid"])
-    assert build.library_path("fused_pyramid").is_file()
+    for name in build.SOURCES:
+        print(reports[name])
+        assert build.library_path(name).is_file()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -172,3 +175,30 @@ def test_traced_run_times_launches_with_cuda_events(cuda):
     assert [s.name for s in col.spans] == [p.name for p in plan.pyramids]
     assert all(s.duration_ms > 0 for s in col.spans)
     assert col.events[-1].name == "run_network"
+
+
+# (P, m, n_digits): the VGG-16 CONV1 and CONV2 window widths; both row
+# mappings (one row per thread up to m = 64, one per warp above) with one
+# to three chunks of 16 cycles; ragged P and m; an m whose y needs more than
+# 48 KB of shared memory
+SOP_CASES = [(1001, 27, 16), (4096, 576, 16), (999, 64, 24), (513, 65, 33),
+             (777, 363, 40), (64, 20000, 12)]
+
+
+@pytest.mark.parametrize("P,m,n_digits", SOP_CASES)
+def test_sop_end_kernel_matches_plain(cuda, P, m, n_digits):
+    gen = torch.Generator().manual_seed(P + m)
+    x = (torch.rand((P, m), generator=gen) * 1.8 - 0.9).to(cuda)
+    y = ((torch.rand(m, generator=gen) * 1.8 - 0.9) / m).to(cuda)
+    before = tos.SOP_END.launches
+    got = tos.online_sop_end_kernel(x, y, n_digits)
+    torch.cuda.synchronize()
+    assert tos.SOP_END.launches == before + 1
+    plain = tos.online_sop_end_plain(x, y, n_digits)
+    # both sum up to m float32 products, in different orders
+    err = float((got[0] - plain[0]).abs().max())
+    assert err <= 1e-5 * max(1.0, float(plain[0].abs().max())), err
+    rows, margins, tie = tos.latch_disagreements(x, y, n_digits, got, plain)
+    assert bool((margins <= tie).all()), (rows, margins, tie)
+    assert not bool((got[2] & (got[0] >= 0)).any())
+    assert 0 < int(got[2].sum()) < P
