@@ -12,9 +12,12 @@ cuts (``repro_torch.net.partition.auto_partition``) and the plan-driven
 launch per pyramid.  The second path is the paper's other half, the
 digit-serial sum of products with Early Negative Detection
 (``repro_torch.kernels.online_sop.online_sop_end``) on VGG-16's first two
-conv layers.  Phases, any failure exits non-zero:
+conv layers.  The third is the Mamba-2 language model's prefill and decode,
+whose prefill runs the SSD chunk scan
+(``repro_torch.kernels.ssd_scan.ops.ssd_scan``) once per layer.  Phases,
+any failure exits non-zero:
 
-1. build  — compile every kernel of both paths from ``src/repro_torch/csrc``
+1. build  — compile every kernel of the three paths from ``src/repro_torch/csrc``
    (one nvcc per source, started together); print the card's name and
    power limit, torch, CUDA and nvcc versions.
 2. pyramids — for every pyramid of the four plans below, the kernel against
@@ -40,14 +43,33 @@ conv layers.  Phases, any failure exits non-zero:
    no flagged row has ``sop >= 0``.  Every filter's launch is timed, and
    every filter's plain version as it is checked; per-layer END shares are
    printed beside the paper's Fig. 12.
-5. results — one ``{"kernels": [...]}`` line (for the pyramid kernels
+5. lm — Mamba-2-780m (``repro_torch.configs.mamba2_780m``) at full width
+   and depth, random weights from a seed, through the port's entry points
+   (``launch.steps.make_prefill_step`` / ``make_decode_step``,
+   ``launch.serve.serve``): the bf16 prefill of 4 x 4096 tokens (chunk
+   256) with the launch counts reset just before and checked just after
+   (48 launches of the SSD chunk-scan kernel, one per layer), each layer's
+   kernel ``y`` and state held against ``ssd_scan_plain`` on that layer's
+   captured inputs (``plain_tol``), layer 0 again at f32, the logits
+   finite and printed against a forward with the plain version in the
+   kernel's place; layer 0's x, B, C with a slowly decaying state (the
+   carried state weighs in each chunk) against the plain version and
+   against a run one chunk shorter advanced by hand; the kernel timed (the
+   48 bare launches, the 48 wrapper calls, the plain versions) and
+   bounded; the bf16 prefill of the prefill_32k cell (32 x 32,768 tokens)
+   with its launch counts checked, timed; the f32 prefill of 2 x 512
+   through the kernel against 512 decode steps over the same prompt
+   (``ssd_decode_step``, no kernel) within ``_recurrence_tol``; ``serve``
+   at bf16 answering 4 requests.
+6. results — one ``{"kernels": [...]}`` line (for the pyramid kernels
    ``launches`` sums the four forwards, ``launches_per_forward`` splits
    it, and every time sums the per-launch medians over the dense pyramids
    of the four plans; for the SOP kernel ``launches_per_layer`` splits
    the 128 and every time is measured over all 128 launches: the median
    of a layer's 64 launches timed as one span, or the sum of the 64 plain
-   calls' single timed spans, summed over the two layers), then the
-   ``{"ok": true, "device": ...}`` line last.
+   calls' single timed spans, summed over the two layers; for the SSD
+   kernel ``launches`` is the bf16 prefill's 48 and every time covers its
+   48 layers), then the ``{"ok": true, "device": ...}`` line last.
 
 Weights and inputs are random, made from fixed seeds.  The script imports
 nothing of JAX and nothing of the reference package ``repro``.
@@ -57,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -642,6 +665,432 @@ class Smoke:
                     bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
+# ---- phase lm -------------------------------------------------------------
+
+# Mamba-2-780m at full width and full depth (48 layers, d_model 1536, 48
+# heads of 64, state 128, vocab 50280, chunk 256), random weights from a
+# seed.  The timed prefill runs the reference's prefill_32k cell itself (32
+# sequences of 32,768 tokens; 58.4 GB at its peak on an H100 80GB HBM3, 27
+# s a forward).  The checked prefill, which captures every layer's SSD
+# inputs and outputs to hold each against the plain version, is cut to
+# 4 x 4096 (16 chunks, the state carried 15 times per sequence and layer):
+# the capture keeps some 217 MB a layer for those 16,384 tokens, 10.4 GB
+# for the 48 layers, and would need 64 times that at the full cell, far
+# more than the card's 80 GB.
+LM_ARCH = "mamba2_780m"
+LM_PREFILL = (4, 4096)  # bf16: kernel against plain on every layer
+LM_TIMED = (32, 32768)  # bf16: the prefill_32k cell, timed and counted
+LM_RECURRENCE = (2, 512)  # f32: prefill through D against 512 decode steps
+LM_SERVE = dict(batch=4, prompt_len=16, new_tokens=32)
+
+
+def _recurrence_tol(ref) -> float:
+    """Bound on the f32 prefill-through-kernel logits against the decode
+    recurrence's.  The two paths share no SSD code: the chunked scan sums
+    each output over a chunk's keys and a carried state, the recurrence
+    updates the state token by token, and both feed the result through 48
+    layers and a residual stream in float32, so they differ by rounding
+    that 48 layers compound.  1e-3 of the logits' magnitude holds that with
+    margin and is far below what a wrong decay, mask or carried state gives
+    (errors of the logits' own size)."""
+    return 1e-3 * max(1.0, float(ref.abs().max()))
+
+
+class Lm:
+    """Phase lm: the Mamba-2-780m prefill and decode path of the port."""
+
+    def __init__(self, torch, device):
+        from repro_torch.configs import get_config
+
+        self.torch = torch
+        self.device = device
+        self.cfg = get_config(LM_ARCH)
+        self.summary = {}
+
+    def _tokens(self, shape, seed):
+        gen = self.torch.Generator(device=self.device).manual_seed(seed)
+        return self.torch.randint(0, self.cfg.vocab, shape, generator=gen,
+                                  device=self.device)
+
+    def _counts(self):
+        from repro_torch.kernels import build
+
+        return {k.symbol: k.launches for k in build.KERNELS}
+
+    def _expect(self, n):
+        from repro_torch.kernels import build
+        from repro_torch.kernels.ssd_scan import ssd_scan as kd
+
+        want = {k.symbol: 0 for k in build.KERNELS}
+        want[kd.SSD_SCAN.symbol] = n
+        return want
+
+    def prefill_bf16(self) -> dict:
+        """Check 1: the bf16 prefill with every layer's SSD inputs and
+        outputs captured, counted; each layer's kernel result held against
+        ``ssd_scan_plain``; one layer again at f32; the logits against a
+        forward with the plain version in the kernel's place; timings."""
+        from repro_torch.kernels import build
+        from repro_torch.kernels.ssd_scan import ops
+        from repro_torch.kernels.ssd_scan import ssd_scan as kd
+        from repro_torch.launch.steps import make_prefill_step
+        from repro_torch.models import ssm
+        from repro_torch.models.model import init_params
+
+        torch, cfg = self.torch, self.cfg
+        params = self.params = init_params(cfg, 0, device=self.device)
+        tokens = self._tokens(LM_PREFILL, 3)
+        prefill = make_prefill_step(cfg)
+        layers = []
+        real = ssm.ssd_scan
+
+        def recording(x, dt, A, B, C, D, *, chunk):
+            y, state = real(x, dt, A, B, C, D, chunk=chunk)
+            layers.append(dict(args=kd.prepare(x, dt, A, B, C, D, chunk),
+                               chunk=chunk, y=y, state=state))
+            return y, state
+
+        torch.cuda.synchronize()
+        ssm.ssd_scan = recording
+        try:
+            build.reset_launch_counts()
+            logits = prefill(params, {"tokens": tokens})
+            counts = self._counts()
+        finally:
+            ssm.ssd_scan = real
+        torch.cuda.synchronize()
+        if counts != self._expect(cfg.n_layers) or len(layers) != cfg.n_layers:
+            raise AssertionError(f"lm prefill: launch counts {counts}, {len(layers)}"
+                                 f" layers captured; want {cfg.n_layers}")
+        lg = logits.float()
+        if (tuple(lg.shape) != (LM_PREFILL[0], cfg.vocab)
+                or not bool(torch.isfinite(lg).all())):
+            raise AssertionError(f"lm prefill: logits {tuple(lg.shape)} not"
+                                 " finite or not of the expected shape")
+        # every layer: the kernel's y and state against the plain version
+        err_y = err_s = mag_y = mag_s = plain_ms = 0.0
+        for i, lay in enumerate(layers):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            py, ps = kd.ssd_scan_plain(*lay["args"], chunk=lay["chunk"])
+            b.record()
+            b.synchronize()
+            plain_ms += a.elapsed_time(b)
+            ey = float((lay["y"].float() - py.float()).abs().max())
+            es = float((lay["state"] - ps).abs().max())
+            ty = kd.plain_tol(py.float(), py.dtype)
+            ts = kd.plain_tol(ps, torch.float32)
+            if not (ey <= ty and es <= ts):
+                raise AssertionError(f"lm layer {i}: kernel vs plain y err {ey}"
+                                     f" (tol {ty}), state err {es} (tol {ts})")
+            err_y, err_s = max(err_y, ey), max(err_s, es)
+            mag_y = max(mag_y, float(py.float().abs().max()))
+            mag_s = max(mag_s, float(ps.abs().max()))
+        # one layer at f32: the same inputs, widened
+        args32 = [t.float() for t in layers[0]["args"]]
+        ky, ks = kd.ssd_scan_kernel(*args32, chunk=layers[0]["chunk"])
+        py, ps = kd.ssd_scan_plain(*args32, chunk=layers[0]["chunk"])
+        err32 = float((ky - py).abs().max())
+        serr32 = float((ks - ps).abs().max())
+        tol32 = kd.plain_tol(py, torch.float32)
+        stol32 = kd.plain_tol(ps, torch.float32)
+        if not (err32 <= tol32 and serr32 <= stol32):
+            raise AssertionError(f"lm layer 0 at f32: y err {err32} (tol"
+                                 f" {tol32}), state err {serr32} (tol {stol32})")
+        del args32, ky, ks, py, ps
+        slow = self.slow_decay(layers[0], kd)
+        timing = self.time_kernel(layers, kd)
+        bound = self.bound(layers)
+        for lay in layers:
+            del lay["args"], lay["y"], lay["state"]
+        # the same forward with the plain version in the kernel's place
+        saved = ops.ssd_scan_kernel
+        ops.ssd_scan_kernel = kd.ssd_scan_plain
+        try:
+            plain_logits = prefill(params, {"tokens": tokens}).float()
+        finally:
+            ops.ssd_scan_kernel = saved
+        fwd_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(fwd_ms)
+        row = dict(
+            cell=f"prefill bf16 {LM_PREFILL[0]}x{LM_PREFILL[1]}",
+            launches=counts[kd.SSD_SCAN.symbol],
+            y_max_abs_err=err_y, state_max_abs_err=err_s,
+            max_abs_y=mag_y, max_abs_state=mag_s,
+            f32_layer0_y_max_abs_err=err32, f32_layer0_state_max_abs_err=serr32,
+            **slow,
+            logits_vs_plain_forward=float((lg - plain_logits).abs().max()),
+            max_abs_logit=float(lg.abs().max()),
+            forward_ms=ms, tokens_per_s=LM_PREFILL[0] * LM_PREFILL[1] / ms * 1e3,
+            plain_ms=plain_ms, **timing, **bound,
+        )
+        print("lm " + json.dumps(row), flush=True)
+        self.summary["prefill_bf16"] = row
+        return row
+
+    def slow_decay(self, lay, kd) -> dict:
+        """Layer 0's x, B, C and D with a slowly decaying state: dt
+        log-uniform in [1e-3, 0.1] (Mamba-2's dt initialisation range) and
+        A = -10^u for u evenly from -2 to 0 across the heads, so that
+        exp(sum dt A) over a chunk of 256 runs from about 0.95 down to
+        about 0.005 and the state carried into a chunk weighs in its
+        result (with the model's random init it decays to nothing within a
+        chunk).  The kernel's y and state against the plain version, and
+        its state against a run one chunk shorter advanced over the last
+        chunk by hand: exp(sum_last dt A) h_short plus the plain version's
+        state of the last chunk alone."""
+        torch = self.torch
+        x, _, _, B, C, D = lay["args"]
+        Q = lay["chunk"]
+        b, S, H, _ = x.shape
+        gen = torch.Generator(device=self.device).manual_seed(5)
+        u = torch.rand((b, S, H), generator=gen, device=self.device)
+        dt = torch.exp(math.log(1e-3) + u * math.log(100.0))
+        A = -torch.logspace(-2, 0, H, device=self.device)
+        args = (x, dt, A, B, C, D)
+        per_chunk = torch.exp((dt * A).reshape(b, S // Q, Q, H).sum(2))
+        median = float(per_chunk.median())
+        if not median > 0.05:
+            raise AssertionError(f"lm slow decay: median chunk decay {median}")
+        y, state = kd.ssd_scan_kernel(*args, chunk=Q)
+        py, ps = kd.ssd_scan_plain(*args, chunk=Q)
+        _, h_short = kd.ssd_scan_kernel(*(t[:, :S - Q] if t.dim() > 1 else t
+                                          for t in args), chunk=Q)
+        _, h_last = kd.ssd_scan_plain(*(t[:, S - Q:] if t.dim() > 1 else t
+                                        for t in args), chunk=Q)
+        want = h_short * per_chunk[:, -1, :, None, None] + h_last
+        ey = float((y.float() - py.float()).abs().max())
+        es = float((state - ps).abs().max())
+        ec = float((state - want).abs().max())
+        ty = kd.plain_tol(py.float(), py.dtype)
+        ts = kd.plain_tol(ps, torch.float32)
+        tc = kd.plain_tol(want, torch.float32)
+        if not (ey <= ty and es <= ts and ec <= tc):
+            raise AssertionError(
+                f"lm slow decay: y err {ey} (tol {ty}), state err {es} (tol"
+                f" {ts}), against the advanced shorter run {ec} (tol {tc})")
+        return dict(slow_decay_median_chunk_decay=median,
+                    slow_decay_max_abs_y=float(py.float().abs().max()),
+                    slow_decay_max_abs_state=float(ps.abs().max()),
+                    slow_decay_y_max_abs_err=ey,
+                    slow_decay_state_max_abs_err=es,
+                    slow_decay_carry_max_abs_err=ec)
+
+    def prefill_full(self) -> dict:
+        """The prefill_32k cell at bf16, no capture: the launch counts of
+        one forward, and the median host time of three after a warm-up,
+        with each SSD call's device time taken by CUDA events around it
+        (the wrapper's casts and launch; no pad at this length)."""
+        from repro_torch.kernels import build
+        from repro_torch.kernels.ssd_scan import ssd_scan as kd
+        from repro_torch.launch.steps import make_prefill_step
+        from repro_torch.models import ssm
+
+        torch, cfg = self.torch, self.cfg
+        tokens = self._tokens(LM_TIMED, 6)
+        prefill = make_prefill_step(cfg)
+        prefill(self.params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        logits = prefill(self.params, {"tokens": tokens})
+        counts = self._counts()
+        torch.cuda.synchronize()
+        if counts != self._expect(cfg.n_layers):
+            raise AssertionError(f"lm prefill_32k: launch counts {counts}")
+        lg = logits.float()
+        if (tuple(lg.shape) != (LM_TIMED[0], cfg.vocab)
+                or not bool(torch.isfinite(lg).all())):
+            raise AssertionError("lm prefill_32k: logits not finite or not"
+                                 " of the expected shape")
+        spans = []
+        real = ssm.ssd_scan
+
+        def timed(*a, chunk):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = real(*a, chunk=chunk)
+            ev[1].record()
+            spans.append(ev)
+            return out
+
+        fwd_ms, ssd_ms = [], []
+        for _ in range(3):
+            spans.clear()
+            ssm.ssd_scan = timed
+            try:
+                t0 = time.perf_counter()
+                prefill(self.params, {"tokens": tokens})
+                torch.cuda.synchronize()
+                fwd_ms.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                ssm.ssd_scan = real
+            ssd_ms.append(sum(a.elapsed_time(b) for a, b in spans))
+        ms = statistics.median(fwd_ms)
+        n_tok = LM_TIMED[0] * LM_TIMED[1]
+        row = dict(cell=f"prefill bf16 {LM_TIMED[0]}x{LM_TIMED[1]} (prefill_32k)",
+                   launches=counts[kd.SSD_SCAN.symbol],
+                   max_abs_logit=float(lg.abs().max()),
+                   forward_ms=ms, forward_ms_runs=fwd_ms,
+                   tokens_per_s=n_tok / ms * 1e3,
+                   ssd_call_device_ms=statistics.median(ssd_ms),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        print("lm " + json.dumps(row), flush=True)
+        self.summary["prefill_32k_bf16"] = row
+        return row
+
+    def time_kernel(self, layers, kd) -> dict:
+        """The 48 layers' bare launches as one span behind a device spin
+        (median of the spans), into buffers made beforehand, and the 48
+        wrapper calls as the path makes them (no spin)."""
+        torch = self.torch
+        x0 = layers[0]["args"][0]
+        y = torch.empty_like(x0)
+        state = torch.empty_like(layers[0]["state"])
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def bare():
+            for lay in layers:
+                kd.launch(*lay["args"], y, state, lay["chunk"], stream=stream)
+
+        ms = _median_ms(bare, torch)
+        if not (torch.equal(y, layers[-1]["y"])
+                and torch.equal(state, layers[-1]["state"])):
+            raise AssertionError("lm: the bare launch disagrees with the"
+                                 " wrapper's")
+        call_ms = _median_ms(
+            lambda: [kd.ssd_scan_kernel(*lay["args"], chunk=lay["chunk"])
+                     for lay in layers], torch, spin=False)
+        return dict(ms=ms, call_ms=call_ms)
+
+    def bound(self, layers) -> dict:
+        """The least time of the 48 launches.  Per chunk and sequence the
+        function sums over k <= q only, Q(Q+1)/2 of the Q^2 pairs: 2 N
+        Q(Q+1)/2 FLOPs for the scores and H 2 P Q(Q+1)/2 for the diagonal
+        blocks, then H 2 Q N P for the state's output term and as many for
+        the state update, at the float32 FMA rate; against x, y, B, C, dt,
+        A, D read or written once and the final state written once, at the
+        HBM rate."""
+        flops = nbytes = 0
+        for lay in layers:
+            x, dt, A, B, C, D = lay["args"]
+            b, S, H, P = x.shape
+            N, Q = B.shape[-1], lay["chunk"]
+            tri = Q * (Q + 1) // 2
+            per = 2 * N * tri + H * 2 * P * tri + 2 * H * 2 * Q * N * P
+            flops += b * (S // Q) * per
+            nbytes += (2 * x.numel() * x.element_size()
+                       + (B.numel() + C.numel()) * B.element_size()
+                       + (dt.numel() + A.numel() + D.numel()) * 4
+                       + lay["state"].numel() * 4)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FLOPS["float32"] * 1e3
+        return dict(bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
+                    ops_ms=ops_ms, gflop_per_layer=flops / len(layers) / 1e9,
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+    def recurrence_f32(self) -> dict:
+        """Check 2: at f32, the last position's logits of the prefill
+        through kernel D against 512 decode steps over the same prompt,
+        which run ``ssd_decode_step`` and no kernel."""
+        import dataclasses
+
+        from repro_torch.kernels import build
+        from repro_torch.kernels.ssd_scan import ssd_scan as kd
+        from repro_torch.launch.steps import make_decode_step, make_prefill_step
+        from repro_torch.models.model import init_params
+        from repro_torch.models.serving import init_caches
+
+        torch = self.torch
+        cfg = dataclasses.replace(self.cfg, dtype="float32")
+        params = init_params(cfg, 0, device=self.device)
+        b, T = LM_RECURRENCE
+        tokens = self._tokens((b, T), 4)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        want = make_prefill_step(cfg)(params, {"tokens": tokens})
+        counts = self._counts()
+        torch.cuda.synchronize()
+        if counts != self._expect(cfg.n_layers):
+            raise AssertionError(f"lm f32 prefill: launch counts {counts}")
+        step = make_decode_step(cfg)
+        caches = init_caches(cfg, b, T, device=self.device)
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        for t in range(T):
+            got, caches = step(params, tokens[:, t:t + 1], caches, t)
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) * 1e3 / T
+        if self._counts() != self._expect(0):
+            raise AssertionError(f"lm decode launched a kernel: {self._counts()}")
+        err = float((got - want).abs().max())
+        tol = _recurrence_tol(want)
+        if not (err <= tol and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"lm f32: prefill through {kd.SSD_SCAN.symbol}"
+                                 f" vs {T} decode steps, err {err} > tol {tol}")
+        row = dict(cell=f"prefill f32 {b}x{T} vs {T} decode steps",
+                   launches=counts[kd.SSD_SCAN.symbol],
+                   logits_max_abs_err=err, tol=tol,
+                   max_abs_logit=float(want.abs().max()),
+                   decode_ms_per_token=dec_ms)
+        print("lm " + json.dumps(row), flush=True)
+        self.summary["recurrence_f32"] = row
+        return row
+
+    def serve(self) -> dict:
+        """Check 3: ``serve`` at full width and bf16 answers its requests
+        with valid token ids."""
+        from repro_torch.launch.serve import serve
+
+        gen, tps = serve(LM_ARCH, reduced=False, device=self.device,
+                         **LM_SERVE)
+        want = (LM_SERVE["batch"], LM_SERVE["new_tokens"])
+        if (tuple(gen.shape) != want or int(gen.min()) < 0
+                or int(gen.max()) >= self.cfg.vocab):
+            raise AssertionError(f"lm serve: tokens {tuple(gen.shape)} in"
+                                 f" [{int(gen.min())}, {int(gen.max())}]")
+        row = dict(cell="serve bf16", **LM_SERVE, tokens_per_s=tps)
+        print("lm " + json.dumps(row), flush=True)
+        self.summary["serve_bf16"] = row
+        return row
+
+    def run(self) -> dict:
+        """The three checks; returns kernel D's entry of the kernels line."""
+        from repro_torch.kernels.ssd_scan import ssd_scan as kd
+
+        pre = self.prefill_bf16()
+        self.torch.cuda.empty_cache()
+        full = self.prefill_full()
+        del self.params
+        self.torch.cuda.empty_cache()
+        rec = self.recurrence_f32()
+        self.torch.cuda.empty_cache()
+        self.serve()
+        return dict(
+            name=kd.SSD_SCAN.symbol, route="cuda", source=kd.SSD_SCAN.source,
+            replaces=kd.SSD_SCAN.replaces, launches=pre["launches"],
+            launches_per_forward={pre["cell"]: pre["launches"],
+                                  full["cell"]: full["launches"],
+                                  rec["cell"]: rec["launches"]},
+            max_abs_err=max(pre["y_max_abs_err"], pre["state_max_abs_err"],
+                            pre["f32_layer0_y_max_abs_err"],
+                            pre["f32_layer0_state_max_abs_err"],
+                            pre["slow_decay_y_max_abs_err"],
+                            pre["slow_decay_state_max_abs_err"],
+                            pre["slow_decay_carry_max_abs_err"]),
+            ms=pre["ms"], call_ms=pre["call_ms"], plain_ms=pre["plain_ms"],
+            bound_ms=pre["bound_ms"], bound_by=pre["bound_by"],
+            # no single PyTorch call computes the SSD chunk scan
+            library_ms=None,
+        )
+
+
 def _forward_ms(run, torch) -> float:
     """Median host time of a whole forward, ended by a synchronize."""
     from repro_torch.net.runner import run_network
@@ -700,6 +1149,8 @@ def main(argv=None) -> int:
         smoke.phase_pyramids()
         counts = smoke.phase_end_to_end()
         sop = smoke.phase_sop()
+        lm = Lm(torch, device)
+        ssd = lm.run()
         kernels = []
         for k in fc.KERNELS:
             st = smoke.stats[k.symbol]
@@ -716,6 +1167,7 @@ def main(argv=None) -> int:
                 library_ms=st["library_ms"],
             ))
         kernels.append(sop)
+        kernels.append(ssd)
         if args.out is not None:
             args.out.parent.mkdir(parents=True, exist_ok=True)
             args.out.write_text(json.dumps(dict(
@@ -723,6 +1175,7 @@ def main(argv=None) -> int:
                 pyramids={s: v["rows"] for s, v in smoke.stats.items()},
                 end_to_end=[r["summary"] for r in smoke.runs],
                 sop=smoke.sop_rows,
+                lm=lm.summary,
                 seconds=time.perf_counter() - t0,
             ), indent=1))
         print(json.dumps({"kernels": kernels}), flush=True)

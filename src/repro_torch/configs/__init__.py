@@ -1,0 +1,10 @@
+"""Architecture configs: one module per ported architecture.
+
+``get_config("<id>")`` resolves the registry (only the SSM family's
+``mamba2_780m`` so far); shapes live in :mod:`repro_torch.configs.shapes`.
+"""
+
+from .base import ARCH_IDS, ArchConfig, get_config
+from .shapes import SHAPES, ShapeConfig
+
+__all__ = ["ARCH_IDS", "ArchConfig", "SHAPES", "ShapeConfig", "get_config"]

@@ -1,10 +1,11 @@
 """Carry the reference package's params into the port.
 
 The reference (JAX) and the port share layouts — HWIO ``(K, K, Cin, Cout)``
-conv weights, ``(fan_in, n_out)`` dense weights and ``(Cout,)`` biases — so
-the same numbers give the same function in both.  These helpers take the
-reference's params as numpy arrays (``np.asarray`` of each leaf; any
-array-like works) and return the port's tensors.  Nothing here imports
+conv weights, ``(fan_in, n_out)`` dense weights and ``(Cout,)`` biases, and
+the language models' stacked ``(L, ...)`` layer params and ``(L, B, ...)``
+caches — so the same numbers give the same function in both.  These
+helpers take the reference's params as numpy arrays (``np.asarray`` of each
+leaf; any array-like works) and return the port's tensors.  Nothing here imports
 JAX: the caller converts on its side.
 """
 
@@ -18,7 +19,11 @@ from repro_torch.core.executor import PyramidParams
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16, which torch cannot read
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
 
 
 def params_from_numpy(params: dict, *, device=None) -> dict:
@@ -43,3 +48,19 @@ def pyramid_params_from_numpy(params, *, device=None) -> PyramidParams:
         weights=[_tensor(w, dev) for w in params.weights],
         biases=[_tensor(b, dev) for b in params.biases],
     )
+
+
+def lm_params_from_numpy(tree: dict, device=None) -> dict:
+    """A language model's param tree (nested dicts of numpy-convertible
+    arrays, as ``jax.tree.map(np.asarray, params)`` gives them, bfloat16
+    included) -> the same tree of tensors with equal values on ``device``
+    (``None`` = the CUDA card).  Caches (nested dicts of arrays too) take
+    the same path."""
+    dev = resolve_device(device)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return _tensor(t, dev)
+
+    return walk(tree)

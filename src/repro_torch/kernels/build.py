@@ -34,6 +34,7 @@ BUILD_DIR = _PKG.parents[1] / "build"
 SOURCES: dict[str, str] = {
     "fused_pyramid": "fused_pyramid.cu",
     "online_sop": "online_sop.cu",
+    "ssd_scan": "ssd_scan.cu",
 }
 
 NVCC_FLAGS: tuple[str, ...] = (

@@ -1,0 +1,89 @@
+"""Parameter specs: one source of truth for shapes and init scales.
+
+The port of the reference's ``repro.models.params``, cut to what the SSM
+family needs.  Every leaf is declared as ``P(shape, axes, scale)``; the
+tree drives real initialization (truncated normal with fan-in scaling,
+from an explicit ``torch.Generator``).  The logical ``axes`` are kept for
+parity with the reference's specs; one GPU resolves none of them.
+
+Trees are nested dicts; :func:`leaves` and :func:`tree_map` walk them in
+sorted-key order, the order ``jax.tree`` flattens a dict in.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+
+@dataclass(frozen=True)
+class P:
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    scale: float | str = "fan_in"  # "fan_in" | "zero" | "one" | float
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes}"
+                             " differ in rank")
+
+
+def leaves(tree: Any) -> list:
+    """The leaves of a nested dict, in sorted-key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree: Any) -> Any:
+    """``fn`` applied to every leaf of a nested dict; the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
+
+
+def _init_leaf(gen: torch.Generator, spec: P, dtype) -> torch.Tensor:
+    kw = dict(dtype=dtype, device=gen.device)
+    if spec.scale == "zero":
+        return torch.zeros(spec.shape, **kw)
+    if spec.scale == "one":
+        return torch.ones(spec.shape, **kw)
+    if spec.scale == "fan_in":
+        fan_in = spec.shape[0] if len(spec.shape) == 1 else math.prod(
+            spec.shape[:-1])
+        std = min(1.0, (1.0 / max(fan_in, 1)) ** 0.5)
+    else:
+        std = float(spec.scale)
+    t = torch.empty(spec.shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (t * std).to(dtype)
+
+
+def init_tree(specs: Any, gen: torch.Generator, dtype=torch.bfloat16):
+    """Materialize a spec tree into real parameters on ``gen``'s device,
+    drawing the leaves from ``gen`` in sorted-key order."""
+    return tree_map(lambda s: _init_leaf(gen, s, dtype), specs)
+
+
+def stack_specs(specs: Any, n: int, axis_name: str = "layers"):
+    """Prepend a stacked (layer) dimension to every leaf of a layer spec."""
+    return tree_map(
+        lambda s: P((n,) + s.shape, (axis_name,) + s.axes, s.scale), specs)
+
+
+def mamba_specs(cfg) -> dict:
+    d = cfg.d_model
+    H, Pd, N, K = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv
+    di = H * Pd
+    conv_ch = di + 2 * N
+    return {
+        "w_in": P((d, 2 * di + 2 * N + H), ("embed", "mlp")),
+        "conv_w": P((K, conv_ch), (None, "mlp")),
+        "dt_bias": P((H,), (None,), "zero"),
+        "A_log": P((H,), (None,), 0.5),
+        "D": P((H,), (None,), "one"),
+        "w_out": P((di, d), ("mlp", "embed")),
+    }

@@ -45,7 +45,7 @@ def test_no_module_imports_jax_or_the_reference():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     assert "leaks: []" in out.stdout
-    assert int(out.stdout.split()[0]) >= 29  # the two slices' modules
+    assert int(out.stdout.split()[0]) >= 47  # the three slices' modules
 
 
 def test_chip_smoke_refuses_without_cuda():
@@ -78,7 +78,14 @@ def test_entry_points_need_a_device_without_cuda():
         "from repro_torch.core import resolve_device\n"
         "from repro_torch.net.graph import lenet5\n"
         "from repro_torch.net.runner import init_network_params\n"
-        "for f in (resolve_device, lambda: init_network_params(lenet5())):\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models.model import init_params\n"
+        "from repro_torch.models.serving import init_caches\n"
+        "from repro_torch.launch.serve import serve\n"
+        "cfg = get_config('mamba2_780m').reduced()\n"
+        "for f in (resolve_device, lambda: init_network_params(lenet5()),\n"
+        "          lambda: init_params(cfg), lambda: init_caches(cfg, 1, 4),\n"
+        "          lambda: serve('mamba2_780m')):\n"
         "    try:\n"
         "        f()\n"
         "    except RuntimeError as e:\n"
