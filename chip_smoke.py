@@ -19,13 +19,16 @@ any failure exits non-zero:
 
 1. build  — compile every kernel of the three paths from ``src/repro_torch/csrc``
    (one nvcc per source, started together); print the card's name and
-   power limit, torch, CUDA and nvcc versions.
+   power limit, torch, CUDA and nvcc versions, the pyramid kernels'
+   ``ptxas`` lines (registers, stack, spills) and their co-resident block
+   count per dtype.
 2. pyramids — for every pyramid of the four plans below, the kernel against
    its plain PyTorch version on the card, on dense inputs and on sparse
    ones with negative-shifted biases (the END cascade): skip maps must be
    equal and outputs within the tolerance stated at ``_tol``.  Each dense
    pyramid is also timed (the bare kernel, the wrapper call, the plain
-   version, a cuDNN chain) and bounded.
+   version, a cuDNN chain) and bounded; its row names each level's conv
+   tile and the TFLOP/s its bare time makes of the bound's FLOPs.
 3. end to end — ``run_network`` at full width (224x224 input, 1000
    classes) for ResNet-18 f32 batch 1 and 8, ResNet-18 bf16 batch 8 and
    VGG-16 f32 batch 1, each held against the port's ``reference_network``
@@ -288,6 +291,8 @@ class Smoke:
             )
             library_ms = self.library_ms(run, pyr, xp, ws, bs, knobs)
             bytes_ms, ops_ms = self.bound_ms(pyr, xp, bs, skip, y)
+            # the bound's FLOPs over the bare kernel's time
+            flops = ops_ms * 1e-3 * PEAK_FLOPS[run["dtype"]]
             for k, v in (("ms", ms), ("call_ms", call_ms),
                          ("plain_ms", plain_ms), ("library_ms", library_ms),
                          ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
@@ -295,7 +300,9 @@ class Smoke:
                 st[k] += v
             st["rows"].append(dict(
                 run=run["key"], pyramid=pyr.name, regime=pyr.launch.regime,
-                alpha=pyr.launch.program.alpha, q=pyr.q_convs, ms=ms,
+                alpha=pyr.launch.program.alpha, q=pyr.q_convs,
+                tiles=fc.level_tiles(pyr.launch.program),
+                tflops=flops / (ms * 1e-3) / 1e12, ms=ms,
                 call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -1104,6 +1111,19 @@ def _forward_ms(run, torch) -> float:
     return statistics.median(times)
 
 
+def print_build_report(reports, fc, device) -> None:
+    """The pyramid kernels' ptxas lines (entry, registers, stack and
+    spills) from this run's build, and each pyramid kernel's co-resident
+    block count per dtype: the grid of its cooperative launch."""
+    for line in reports.get("fused_pyramid", "").splitlines():
+        if any(w in line for w in ("Compiling entry", "registers", "spill")):
+            print(f"ptxas fused_pyramid: {line.strip()}", flush=True)
+    for k in fc.KERNELS:
+        for name, code in fc._DTYPE_CODES.items():
+            print(f"resident blocks {k.symbol} {name}:"
+                  f" {k.resident_blocks(code, device)}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -1145,6 +1165,7 @@ def main(argv=None) -> int:
               f" built {sorted(reports)} in {time.perf_counter() - t0:.1f}s",
               flush=True)
         device = torch.device("cuda")
+        print_build_report(reports, fc, device)
         smoke = Smoke(device)
         smoke.phase_pyramids()
         counts = smoke.phase_end_to_end()

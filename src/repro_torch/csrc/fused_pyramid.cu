@@ -11,52 +11,78 @@
 // What it computes (identical contract to the TPU kernels): for every grid
 // cell (b, i, j) of the (B, alpha, alpha) uniform-stride grid, the level-0
 // halo tile of the pre-padded NHWC input at (i*stride0, j*stride0), then per
-// conv level K*K*Cin float32 multiply-adds per output, + bias, optional
-// ReLU, the validity mask on global coordinates, an optional maxpool with
-// its own mask, and one cast to the compute dtype (float32 or bfloat16).
-// END cascade: at a level l >= 1 (ReLU on, end_skip on) whose incoming
-// compute-dtype tile has max == 0, the multiply-adds are skipped and the
-// level emits the closed form epilogue(relu(b)) — bit-identical to the live
-// path, which computes 0 + b.  Per-cell per-level skip flags are written as
-// int32 (B, alpha, alpha, Q); level 0 never skips.
+// conv level K*K*Cin multiply-adds per output summed in float32, + bias,
+// optional ReLU, the validity mask on global coordinates, an optional
+// maxpool with its own mask, and one cast to the compute dtype (float32 or
+// bfloat16).  END cascade: at a level l >= 1 (ReLU on, end_skip on) whose
+// incoming compute-dtype tile has max == 0, the multiply-adds are skipped
+// and the level emits the closed form epilogue(relu(b)) — bit-identical to
+// the live path, which computes 0 + b.  Per-cell per-level skip flags are
+// written as int32 (B, alpha, alpha, Q); level 0 never skips.
 //
-// Design.  The TPU kernel runs one grid cell per step with the whole tile
-// cascade in VMEM.  At the reference's plans an H100 block could not hold
-// that (ResNet-18 b0's mid tile alone is 58*58*64*4 B = 861 KB against
-// 227 KB of shared memory), and at 224^2 every ResNet-18 launch has
-// alpha == 1, so one block per cell would leave 131 of 132 SMs idle at
-// batch 1.  So the kernel is one persistent cooperative launch of as many
-// blocks as fit on the card at once, and every level is swept by all of
-// them, for all cells together, between grid-wide barriers:
-//   * conv phase — the level as one implicit GEMM per cell, (pixels x
-//     K*K*Cin) @ (K*K*Cin x Cout), cut into 64-pixel x 64-channel tiles;
-//     each tile stages its K*K*Cin sum through shared memory 16 at a time
-//     and each thread keeps 4 x 4 float32 accumulators.  A level with fewer
-//     tiles than blocks (deep layers at batch 1) also splits the K*K*Cin
-//     sum across blocks into partial sums, which a reduction phase adds up
-//     in a fixed order, so results do not depend on scheduling;
-//   * epilogue — bias, ReLU, validity mask, and either the level's output
-//     (cast once) or the pre-pool conv tile; then the pool phase.
-// Inter-level tiles live in a per-cell global scratch (two ping-pong level
-// outputs and the pre-pool conv tile), which stays mostly in the 50 MB L2;
-// scratch, partial sums and liveness flags are read with ld.global.cg so
-// no stale L1 line survives a barrier.  The END test needs no reduction
-// pass: whoever writes a positive value into a cell's level-l output sets
-// that cell's live flag for level l+1, and the barrier publishes it; a
-// tile of a dead cell skips its multiply-adds (the whole block agrees).
+// Schedule.  At the reference's plans a block cannot hold a cell's tile
+// cascade (ResNet-18 b0's mid tile alone is 861 KB against 227 KB of
+// shared memory), and at 224^2 every ResNet-18 launch has alpha == 1.  So
+// the kernel is one persistent cooperative launch of as many blocks as fit
+// on the card at once, and every level is swept by all of them, for all
+// cells together, between grid-wide barriers.  Inter-level tiles live in a
+// per-cell global scratch in the compute dtype (two ping-pong level outputs
+// and the pre-pool conv tile; their values are compute-dtype values, and
+// maxpool commutes with the monotonic rounding), which stays mostly in the
+// 50 MB L2.  Scratch, partial sums and live flags are read through L2 only
+// (ld.global.cg, cp.async.cg), so no stale L1 line survives a barrier.  The
+// END test needs no reduction pass: whoever writes a positive value into a
+// cell's level-l output sets that cell's live flag for level l+1, and the
+// barrier publishes it; a tile of a dead cell skips its multiply-adds.
 //
-// What bounds it on this card: at the main path's shapes the multiply-adds
-// (float32 on the CUDA cores, 67 TFLOP/s; bf16 could use the tensor cores
-// at 989) bound it far more than bytes.  The kernel issues float32 FMAs
-// from shared-memory tiles without tensor cores, double buffering or
-// vectorized loads, so it runs well below that bound; PERF.md records its
-// measured time beside the bound.
+// Conv phase.  A level is one implicit GEMM per cell, (pixels x K*K*Cin) @
+// (K*K*Cin x Cout), cut into tiles of kBM pixels x kBN = 64 channels; the
+// wrapper picks kBM = 128, or 64 where a 128-pixel tile would be mostly
+// empty (a 7 x 7 level), and writes the choice into the descriptor.  A
+// level with fewer tiles than blocks also splits the K*K*Cin sum across
+// blocks into float32 partial sums, which a reduction phase adds up in
+// split order, so results never depend on scheduling.  A block walks its
+// tile's sum in kBK = 32 steps through four shared-memory stages: steps
+// s+1 .. s+3 are in flight while step s computes.  The window gather splits
+// each address into a per-pixel part ((r*S)*row + c*S)*Cin, tabulated in
+// shared memory once per tile, and a per-k part ((kh*row + kw)*Cin + ci),
+// computed once per step, in 32-bit arithmetic off a 64-bit cell base.
+// Where Cin (for the input tile) or Cout (for the weights) is a multiple of
+// 16 bytes' worth of values, the copies are 16-byte cp.async along the
+// channel axis; otherwise (an RGB input, a 6-channel level) they are 4-byte
+// cp.async for float32 data that no block writes during the launch, and
+// loads stored at once for the rest.
+//   * bfloat16: the tiles stay bf16 in shared memory (rows padded by 16
+//     bytes so ldmatrix is free of bank conflicts) and feed
+//     mma.sync.m16n8k16 bf16 -> float32 on the tensor cores; the 8 warps
+//     split a tile 4 (pixels) x 2 (channels).
+//   * float32: IEEE fp32 FMAs on the CUDA cores (no TF32); each thread owns
+//     kBM/16 pixels x 4 channels (8 x 4 of the large tile) and reads its
+//     operands as vectors, per two k a float4 of B each and a float2 of A
+//     for each pixel: 10 shared loads per 64 FMAs.  The k loop is not
+//     unrolled, which keeps it within 128 registers (two blocks of 256
+//     threads per SM) without spills.
+// The tile's sums then go through shared memory to the epilogue (bias,
+// ReLU, mask, one cast), in float32 per output, each thread on one channel
+// with its pixel coordinates advanced by addition; a block sets its cell's
+// live flag with one store.
+//
+// What bounds it on this card: the multiply-adds bound it far more than
+// bytes (float32 at 67 TFLOP/s on the CUDA cores; bf16 at 989 on the
+// tensor cores, which puts a whole batch-8 ResNet-18 forward's convolutions
+// at about 0.03 ms).  Above that bound the kernel is held by what surrounds
+// the products: the launch and the grid barriers (one per level, one per
+// pool, one per split reduction), the window gather from L2 (K*K times the
+// level's input, for every 64 output channels), the partial-sum
+// reduction, and the scalar epilogue.  PERF.md records its measured time
+// beside the bound.
 //
 // x_slots / w_slots / streamed are schedule knobs of the TPU kernels that
 // never change values; this kernel reads one flat HWIO weight buffer with
 // per-level offsets and ignores them.  c_tiles only reorders the last
 // level's tiles (channel block outermost), which changes no value.  The
-// grid and every level's K-split come from the wrapper in the descriptor.
+// grid, every level's tile and its K-split come from the wrapper in the
+// descriptor.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,17 +93,19 @@
 namespace {
 
 constexpr int kMaxLevels = 16;
-constexpr int kThreads = 256;
-// conv output tile per block: kBM pixels x kBN channels, the K*K*Cin sum in
-// kBK steps staged in shared memory; each thread owns kTM x kTN outputs
-// (pixels ty*kTM.., channels tx + e*kGX so stores stay coalesced)
-constexpr int kBM = 64, kBN = 64, kBK = 16;
-constexpr int kGX = 16;  // threads along the channel axis
-constexpr int kTM = kBM / (kThreads / kGX), kTN = kBN / kGX;
+// conv tile: kBM[tile] pixels x kBN channels, the K*K*Cin sum in kBK steps
+// (mirrored by _TILE_M / _TILE_N / _TILE_K in fused_conv.py)
+constexpr int kBMLarge = 128, kBMSmall = 64, kBN = 64, kBK = 32;
+// shared-memory stages of the K loop: up to kStages - 1 steps in flight
+constexpr int kStages = 4;
 // int64 descriptor layout shared with the Python wrapper
 // (repro_torch/kernels/fused_conv/fused_conv.py :: _descriptor)
 constexpr int kHeader = 12;
-constexpr int kPerLevel = 18;
+constexpr int kPerLevel = 19;
+
+// threads per block, and the co-resident blocks per SM the registers are
+// budgeted for (128 registers a thread)
+constexpr int kThreads = 256, kMinBlocks = 2;
 
 struct Level {
   int K, S, n_in, n_out, in_size, out_size;
@@ -86,12 +114,13 @@ struct Level {
   long long w_off;
   int b_off;
   int splits;  // K*K*Cin split this many ways across blocks (1 = none)
+  int tile;    // 0: kBMLarge pixels per conv tile, 1: kBMSmall
 };
 
 struct Desc {
   int batch, alpha, tile0, stride0, padded, c0;
   int q, relu, end_skip, c_tiles;
-  long long cap;  // floats per cell in one scratch buffer
+  long long cap;  // compute-dtype values per cell in one scratch buffer
   int grid;       // blocks to launch (at most the co-resident count)
   Level lv[kMaxLevels];
 };
@@ -109,6 +138,191 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
+
+// loads through L2 only (written earlier in this launch by other blocks)
+__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float ldcg(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldcg(p));
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy through L2; zero-fills when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4-byte copy through L1, for data no block writes during the launch (the
+// input and the weights); zero-fills when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most n committed groups are still in flight
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
+                                         const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Shared-memory layout of one conv tile: kStages stages of A (BM pixel rows
+// of kBK values, k contiguous) and B (kBK rows of kBN channels), each row
+// padded by 16 bytes (conflict-free ldmatrix and float4 reads, rows stay
+// 16-byte aligned for cp.async); after the last step the tile's float32
+// sums are laid over them for the epilogue; then the per-pixel gather
+// offsets.
+template <typename T, int BM>
+struct Tile {
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  static constexpr int kAS = kBK + kVec;  // A row stride, values
+  static constexpr int kBS = kBN + kVec;  // B row stride, values
+  static constexpr int kA = BM * kAS;
+  static constexpr int kStage = kA + kBK * kBS;
+  static constexpr int kCS = kBN + 8;  // float32 sums row stride
+  // the stages, or the tile's float32 sums laid over them
+  static constexpr int kTileBytes =
+      kStages * kStage * static_cast<int>(sizeof(T)) > BM * kCS * 4
+          ? kStages * kStage * static_cast<int>(sizeof(T))
+          : BM * kCS * 4;
+};
+
+// dynamic shared memory of a block: the larger tile's (kBMSmall uses less)
+template <typename T>
+constexpr int smem_bytes() {
+  return Tile<T, kBMLarge>::kTileBytes +
+         kBMLarge * static_cast<int>(sizeof(int));
+}
+
+// One kBK step of a tile's products, out of shared memory into per-thread
+// float32 accumulators (BM/4 of them), and the (pixel, channel) of each.
+template <typename T, int BM>
+struct Mma;
+
+// float32 on the CUDA cores: thread (tx, ty) owns pixels ty*kTM .. +kTM
+// and channels tx*4 .. +4; per 2 k it reads 2 + kTM vectors for kTM*8 FMAs
+template <int BM>
+struct Mma<float, BM> {
+  using C = Tile<float, BM>;
+  static constexpr int kTM = BM / 16;
+
+  __device__ __forceinline__ static void run(const float* As,
+                                             const float* Bs, float* acc) {
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    // not unrolled: the loop stays within the register budget (no
+    // spills at two blocks per SM)
+#pragma unroll 1
+    for (int kk = 0; kk < kBK; kk += 2) {
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(Bs + kk * C::kBS + tx * 4);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(Bs + (kk + 1) * C::kBS + tx * 4);
+#pragma unroll
+      for (int a = 0; a < kTM; ++a) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            As + (ty * kTM + a) * C::kAS + kk);
+        float* c = acc + a * 4;
+        c[0] = fmaf(v.x, b0.x, c[0]);
+        c[1] = fmaf(v.x, b0.y, c[1]);
+        c[2] = fmaf(v.x, b0.z, c[2]);
+        c[3] = fmaf(v.x, b0.w, c[3]);
+        c[0] = fmaf(v.y, b1.x, c[0]);
+        c[1] = fmaf(v.y, b1.y, c[1]);
+        c[2] = fmaf(v.y, b1.z, c[2]);
+        c[3] = fmaf(v.y, b1.w, c[3]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ static void coord(int idx, int& m, int& n) {
+    m = (threadIdx.x / 16) * kTM + idx / 4;
+    n = (threadIdx.x % 16) * 4 + idx % 4;
+  }
+};
+
+// bfloat16 on the tensor cores: warp w owns pixels (w % 4)*kMT*16 .. and
+// channels (w / 4)*32 .., kMT x 4 m16n8 accumulator tiles
+template <int BM>
+struct Mma<__nv_bfloat16, BM> {
+  using C = Tile<__nv_bfloat16, BM>;
+  static constexpr int kMT = BM / 64;
+
+  __device__ __forceinline__ static void run(const __nv_bfloat16* As,
+                                             const __nv_bfloat16* Bs,
+                                             float* acc) {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int m0 = (warp % 4) * kMT * 16, n0 = (warp / 4) * 32;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      unsigned a[kMT][4], b[4][2];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+        ldsm_x4(a[i], As + (m0 + i * 16 + (lane & 15)) * C::kAS + kk +
+                          (lane >> 4) * 8);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        unsigned r[4];
+        ldsm_x4_trans(r, Bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                  C::kBS +
+                             n0 + h * 16 + (lane >> 4) * 8);
+        b[2 * h][0] = r[0];
+        b[2 * h][1] = r[1];
+        b[2 * h + 1][0] = r[2];
+        b[2 * h + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(acc + (i * 4 + j) * 4, a[i], b[j]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ static void coord(int idx, int& m, int& n) {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int i = idx / 16, j = (idx / 4) % 4, c = idx % 4;
+    m = (warp % 4) * kMT * 16 + i * 16 + (lane >> 2) + (c >> 1) * 8;
+    n = (warp / 4) * 32 + j * 8 + (lane & 3) * 2 + (c & 1);
+  }
+};
 
 // Grid-wide barrier over a cooperative launch (all blocks co-resident).
 // bar[0] counts arrivals cumulatively; bar[1] is the last released epoch.
@@ -132,270 +346,424 @@ __device__ __forceinline__ void grid_sync(unsigned int* bar,
   __syncthreads();
 }
 
+// live[i] = 1 where pos: one store per warp and flag, not one per positive
+// value (same-address stores from every thread serialise in L2)
+__device__ __forceinline__ void flag_live(int* live, int i, bool pos) {
+  const unsigned int want = __ballot_sync(__activemask(), pos);
+  if (pos) {
+    const unsigned int peers = __match_any_sync(want, i);
+    if (static_cast<int>(threadIdx.x % 32) == __ffs(peers) - 1) live[i] = 1;
+  }
+}
+
 __device__ __forceinline__ bool in_range(int g, int valid) {
   return g >= 0 && g < valid;
 }
 
+// Grid cells of a launch and per image; values per scratch buffer.  Read
+// from the descriptor where they are needed, so no register holds them
+// across a phase.
+__device__ __forceinline__ int n_cells(const Desc& d) {
+  return d.batch * d.alpha * d.alpha;
+}
+__device__ __forceinline__ long long scratch_buf(const Desc& d) {
+  return static_cast<long long>(n_cells(d)) * d.cap;
+}
+
+// The buffers every phase of a launch shares.
+template <typename T>
+struct Ctx {
+  const T* x;
+  const T* w;
+  const T* bias;
+  T* out;
+  T* scratch;  // two level-output buffers, then the pre-pool conv tiles
+  float* partial;
+  int* live;
+
+  // the level-l value v at (cell, row r, col c, channel co) of a tile of
+  // width `width` — a conv output or a pool output — after its mask: the
+  // output, or the next level's input; true where that input is positive
+  // (the caller sets the cell's live flag for level l+1)
+  __device__ __forceinline__ bool put(const Desc& d, int l, int cell,
+                                      int r, int c, int width, int co,
+                                      float v) const {
+    const T t = from_f32<T>(v);
+    const int n_out = d.lv[l].n_out;
+    if (l == d.q - 1) {
+      const Level& L = d.lv[l];
+      const int region = L.pool_k ? L.pool_out : L.out_size;
+      const int out_w = d.alpha * region, a2 = d.alpha * d.alpha;
+      const int ij = cell % a2, i = ij / d.alpha, j = ij % d.alpha;
+      const long long b = cell / a2;
+      out[((b * out_w + i * region + r) * out_w + j * region + c) * n_out +
+          co] = t;
+      return false;
+    }
+    T* tout = scratch + (l % 2) * scratch_buf(d);
+    tout[cell * d.cap + static_cast<long long>(r * width + c) * n_out + co] =
+        t;
+    return to_f32(t) > 0.f;
+  }
+
+  // conv output (cell at grid (i, j), pixel p = (r, c), channel co) of
+  // level l, its K*K*Cin sum plus the bias in v: ReLU, validity mask, then
+  // the pre-pool tile or put (returning put's flag)
+  __device__ __forceinline__ bool finish(const Desc& d, int l, int cell,
+                                         int i, int j, int p, int r, int c,
+                                         int co, float v) const {
+    const Level& L = d.lv[l];
+    if (d.relu) v = fmaxf(v, 0.f);
+    if (!in_range(L.o_base + i * L.o_step + r, L.valid) ||
+        !in_range(L.o_base + j * L.o_step + c, L.valid)) {
+      v = 0.f;
+    }
+    if (L.pool_k > 0) {
+      T* tconv = scratch + 2 * scratch_buf(d);
+      tconv[cell * d.cap + static_cast<long long>(p) * L.n_out + co] =
+          from_f32<T>(v);
+      return false;
+    }
+    return put(d, l, cell, r, c, L.out_size, co, v);
+  }
+
+  // the same from (cell, p, co) and the sum alone
+  __device__ __forceinline__ bool emit(const Desc& d, int l, int cell,
+                                       int p, int co, float acc) const {
+    const Level& L = d.lv[l];
+    const int a2 = d.alpha * d.alpha;
+    const int ij = cell % a2, i = ij / d.alpha, j = ij % d.alpha;
+    const int r = p / L.out_size, c = p % L.out_size;
+    return finish(d, l, cell, i, j, p, r, c, co,
+                  acc + to_f32(bias[L.b_off + co]));
+  }
+};
+
+// The conv phase of level l with BM-pixel tiles: every (cell, tile, split)
+// unit in turn, strided over the grid.
+template <typename T, bool KTILED, int BM>
+__device__ __forceinline__ void conv_phase(const Desc& d, const Ctx<T>& cx,
+                                           int l, unsigned char* smem) {
+  using C = Tile<T, BM>;
+  using M = Mma<T, BM>;
+  constexpr int V = C::kVec;
+  constexpr int kAcc = BM * kBN / kThreads;
+  T* const sA = reinterpret_cast<T*>(smem);
+  float* const Cs = reinterpret_cast<float*>(smem);
+  int* const pixoff = reinterpret_cast<int*>(smem + C::kTileBytes);
+  const Level& L = d.lv[l];
+  const int tid = threadIdx.x;
+  const bool last = l == d.q - 1;
+  const bool can_skip = l > 0 && d.relu && d.end_skip;
+  const int cin = L.n_in, K = L.K, S = L.S, n_out = L.n_out;
+  const int osz = L.out_size, pix = osz * osz;
+  const int kdim = K * K * cin;
+  const int ksteps = (kdim + kBK - 1) / kBK;
+  const int splits = L.splits;
+  const int row = l == 0 ? d.padded : L.in_size;
+  const T* const src =
+      l == 0 ? cx.x : cx.scratch + ((l + 1) % 2) * scratch_buf(d);
+  const T* const wl = cx.w + L.w_off;
+  // 16-byte copies along the channel axis where every row start is aligned
+  // (cell bases are multiples of Cin or of the scratch capacity)
+  const bool vec_a =
+      cin % V == 0 && (l == 0 || d.cap % V == 0) && aligned16(src);
+  const bool vec_b = n_out % V == 0 && aligned16(wl);
+  // unit indices fit in 32 bits (cells * tiles * splits is at most a few
+  // million); only addresses are 64-bit
+  const int cells = n_cells(d);
+  const int mblocks = (pix + BM - 1) / BM;
+  const int nblocks = (n_out + kBN - 1) / kBN;
+  const int tiles = cells * mblocks * nblocks;
+  // channel-tiled last level: channel block outermost, so concurrent
+  // blocks share one slice of the weights (c_tiles changes no value)
+  const bool nmajor = KTILED && last && d.c_tiles > 1;
+  // the per-k part of the gather address of reduction index k
+  auto koff = [&](int k) {
+    const int kwh = k / cin, ci = k - kwh * cin;
+    const int kh = kwh / K, kw = kwh - kh * K;
+    return (kh * row + kw) * cin + ci;
+  };
+
+  for (int u = blockIdx.x; u < tiles * splits; u += gridDim.x) {
+    const int sp = u % splits;
+    const int tile = u / splits;
+    int cell, mb, nb;
+    if (nmajor) {
+      nb = tile / (cells * mblocks);
+      const int rest = tile % (cells * mblocks);
+      cell = rest / mblocks;
+      mb = rest % mblocks;
+    } else {
+      nb = tile % nblocks;
+      const int rest = tile / nblocks;
+      mb = rest % mblocks;
+      cell = rest / mblocks;
+    }
+    const int m_base = mb * BM;
+    const int n_base = nb * kBN;
+    // END: the conv of an all-zero tile is the bias (uniform per block);
+    // one load of the flag per warp, not per thread
+    int flag = 1;
+    if (can_skip && threadIdx.x % 32 == 0) {
+      flag = __ldcg(cx.live + cell * d.q + l);
+    }
+    const bool dead = __shfl_sync(0xffffffffu, flag, 0) == 0;
+    if (dead && splits > 1) continue;  // the reduction emits the bias
+    if (!dead) {
+      const T* base;
+      if (l == 0) {
+        const int a2 = d.alpha * d.alpha;
+        const int ij = cell % a2, i = ij / d.alpha, j = ij % d.alpha;
+        const long long b = cell / a2;
+        base = cx.x + ((b * d.padded + static_cast<long long>(i) * d.stride0) *
+                           d.padded +
+                       static_cast<long long>(j) * d.stride0) *
+                          d.c0;
+      } else {
+        base = src + static_cast<long long>(cell) * d.cap;
+      }
+      for (int m = tid; m < BM; m += kThreads) {
+        const int p = m_base + m;
+        const int r = p / osz, c = p - r * osz;
+        pixoff[m] = p < pix ? (r * S * row + c * S) * cin : -1;
+      }
+      __syncthreads();
+      const int s0 = sp * ksteps / splits;
+      const int s1 = (sp + 1) * ksteps / splits;
+      // stage s into shared buffer `stage`: 16-byte cp.async copies left
+      // in flight; the scalar gathers (an RGB input, a 6-channel level) are
+      // 4-byte cp.async copies where the data is float32 and read-only
+      // during the launch, else loads stored at once (registers are the
+      // scarcer)
+      constexpr bool async4 = sizeof(T) == 4;
+      auto fetch = [&](int s, int stage) {
+        T* As = sA + stage * C::kStage;
+        T* Bs = As + C::kA;
+        const int k0 = s * kBK;
+        if (vec_a) {
+          constexpr int cpr = kBK / V;
+          const int kc = tid % cpr, k = k0 + kc * V, ko = koff(k);
+#pragma unroll
+          for (int e = 0; e < BM * cpr / kThreads; ++e) {
+            const int m = tid / cpr + e * (kThreads / cpr);
+            const int po = pixoff[m];
+            const bool ok = po >= 0 && k < kdim;
+            cp_async16(As + m * C::kAS + kc * V, ok ? base + po + ko : base,
+                       ok);
+          }
+        } else {
+          const int kk = tid % kBK, k = k0 + kk, ko = koff(k);
+#pragma unroll 4
+          for (int e = 0; e < BM * kBK / kThreads; ++e) {
+            const int m = tid / kBK + e * (kThreads / kBK);
+            const int po = pixoff[m];
+            const bool ok = po >= 0 && k < kdim;
+            if (async4 && l == 0) {
+              cp_async4(As + m * C::kAS + kk, ok ? base + po + ko : base, ok);
+            } else {
+              As[m * C::kAS + kk] =
+                  from_f32<T>(ok ? ldcg(base + po + ko) : 0.f);
+            }
+          }
+        }
+        if (vec_b) {
+          constexpr int cpr = kBN / V;
+          const int nc = tid % cpr, co = n_base + nc * V;
+#pragma unroll
+          for (int e = 0; e < kBK * cpr / kThreads; ++e) {
+            const int kk = tid / cpr + e * (kThreads / cpr), k = k0 + kk;
+            const bool ok = k < kdim && co < n_out;
+            cp_async16(Bs + kk * C::kBS + nc * V,
+                       ok ? wl + static_cast<long long>(k) * n_out + co : wl,
+                       ok);
+          }
+        } else {
+          const int n = tid % kBN, co = n_base + n;
+#pragma unroll 4
+          for (int e = 0; e < kBK * kBN / kThreads; ++e) {
+            const int kk = tid / kBN + e * (kThreads / kBN), k = k0 + kk;
+            const bool ok = k < kdim && co < n_out;
+            const T* at = ok ? wl + static_cast<long long>(k) * n_out + co : wl;
+            if (async4) {
+              cp_async4(Bs + kk * C::kBS + n, at, ok);
+            } else {
+              Bs[kk * C::kBS + n] = ok ? *at : from_f32<T>(0.f);
+            }
+          }
+        }
+      };
+      float acc[kAcc];
+#pragma unroll
+      for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
+      // one commit group per step, empty past the split's end, so the
+      // group count stays uniform
+#pragma unroll
+      for (int i = 0; i < kStages - 1; ++i) {
+        if (s0 + i < s1) fetch(s0 + i, i);
+        cp_async_commit();
+      }
+      for (int s = s0; s < s1; ++s) {
+        cp_async_wait<kStages - 2>();  // step s has landed ...
+        __syncthreads();  // ... for every thread, and step s-1 is consumed
+        const int ahead = s + kStages - 1;
+        if (ahead < s1) fetch(ahead, (ahead - s0) % kStages);
+        cp_async_commit();
+        const int stage = (s - s0) % kStages;
+        M::run(sA + stage * C::kStage, sA + stage * C::kStage + C::kA, acc);
+      }
+      cp_async_wait<0>();  // only empty groups are left
+      __syncthreads();
+      // the sums go through shared memory (over the stages, which every
+      // thread has finished reading), so the epilogue holds no accumulator
+      // registers and writes each output row with consecutive threads
+#pragma unroll
+      for (int a = 0; a < kAcc; a += 2) {
+        int m, n;
+        M::coord(a, m, n);
+        *reinterpret_cast<float2*>(Cs + m * C::kCS + n) =
+            make_float2(acc[a], acc[a + 1]);
+      }
+      __syncthreads();
+    }
+    // epilogue (a dead tile's sums are 0): each thread keeps one channel
+    // and steps down the tile's pixels kRows at a time, its output
+    // coordinates advanced by addition
+    bool pos = false;
+    const int n = tid % kBN, co = n_base + n;
+    if (co < n_out) {
+      constexpr int kRows = kThreads / kBN;
+      const int a2 = d.alpha * d.alpha, ij = cell % a2;
+      const int i = ij / d.alpha, j = ij % d.alpha;
+      const float b = to_f32(cx.bias[L.b_off + co]);
+      int m = tid / kBN, p = m_base + m;
+      int r = p / osz, c = p - r * osz;
+      for (; m < BM && p < pix; m += kRows, p += kRows) {
+        const float v = dead ? 0.f : Cs[m * C::kCS + n];
+        if (splits > 1) {
+          cx.partial[(static_cast<long long>(sp * cells + cell) * pix + p) *
+                         n_out +
+                     co] = v;
+        } else {
+          pos |= cx.finish(d, l, cell, i, j, p, r, c, co, v + b);
+        }
+        for (c += kRows; c >= osz; c -= osz) ++r;
+      }
+    }
+    // the tile is one cell's: one flag store per block
+    if (__syncthreads_or(pos) && tid == 0) cx.live[cell * d.q + l + 1] = 1;
+  }
+}
+
 template <typename T, bool KTILED>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     pyramid_kernel(const Desc d, const T* __restrict__ x,
                    const T* __restrict__ w, const T* __restrict__ bias,
-                   T* __restrict__ out, int* __restrict__ skip,
-                   float* scratch, float* partial, int* live,
-                   unsigned int* bar) {
-  __shared__ float As[kBK][kBM + 4];  // gathered inputs, k-major
-  __shared__ float Bs[kBK][kBN + 4];  // weight rows
-  const int tx = threadIdx.x % kGX, ty = threadIdx.x / kGX;
+                   T* __restrict__ out, int* __restrict__ skip, T* scratch,
+                   float* partial, int* live, unsigned int* bar) {
+  extern __shared__ __align__(16) unsigned char smem[];
   unsigned int epoch = 0;
-  const long long cells = (long long)d.batch * d.alpha * d.alpha;
-  const long long cells2 = (long long)d.alpha * d.alpha;
-  const long long nthreads = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const Level& lastL = d.lv[d.q - 1];
-  const int region = lastL.pool_k ? lastL.pool_out : lastL.out_size;
-  const int out_w = d.alpha * region;
-  const int c_last = lastL.n_out;
-  const long long buf = cells * d.cap;  // floats per scratch buffer
-  float* tconv = scratch + 2 * buf;     // pre-pool conv tiles
+  // element indices of a phase fit in 32 bits (the wrapper checks the
+  // buffer sizes); addresses are formed in 64 bits
+  const int nthreads = gridDim.x * blockDim.x;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  Ctx<T> cx;
+  cx.x = x;
+  cx.w = w;
+  cx.bias = bias;
+  cx.out = out;
+  cx.scratch = scratch;
+  cx.partial = partial;
+  cx.live = live;
 
   for (int l = 0; l < d.q; ++l) {
     const Level& L = d.lv[l];
-    const bool last = l == d.q - 1;
-    const bool pooled = L.pool_k > 0;
     const bool can_skip = l > 0 && d.relu && d.end_skip;
-    const float* tin = scratch + ((l + 1) % 2) * buf;  // level l-1's output
-    float* tout = scratch + (l % 2) * buf;
-    const int osz = L.out_size;
-    const long long pix = (long long)osz * osz;
-    const int kdim = L.K * L.K * L.n_in;
-    const int ksteps = (kdim + kBK - 1) / kBK;
-    const int splits = L.splits;
 
-    // conv output (cell, pixel p, channel co) with its K*K*Cin sum in acc:
-    // + bias, ReLU, validity mask, then the pre-pool tile, the next level's
-    // input (setting the cell's live flag) or the output
-    auto emit = [&](long long cell, long long p, int co, float acc) {
-      const int ij = (int)(cell % cells2);
-      const int i = ij / d.alpha, j = ij % d.alpha;
-      const int r = (int)(p / osz), c = (int)(p % osz);
-      float v = acc + to_f32(bias[L.b_off + co]);
-      if (d.relu) v = fmaxf(v, 0.f);
-      if (!in_range(L.o_base + i * L.o_step + r, L.valid) ||
-          !in_range(L.o_base + j * L.o_step + c, L.valid)) {
-        v = 0.f;
-      }
-      if (pooled) {
-        tconv[cell * d.cap + p * L.n_out + co] = v;
-        return;
-      }
-      const T t = from_f32<T>(v);
-      if (last) {
-        const long long b = cell / cells2;
-        out[((b * out_w + (long long)i * region + r) * out_w +
-              (long long)j * region + c) *
-                 c_last +
-             co] = t;
-      } else {
-        const float vf = to_f32(t);
-        tout[cell * d.cap + p * L.n_out + co] = vf;
-        if (vf > 0.f) live[cell * d.q + l + 1] = 1;
-      }
-    };
-
-    // ---- conv phase: level l as one implicit GEMM per cell, (pixels x
-    // K*K*Cin) @ (K*K*Cin x Cout), in kBM x kBN output tiles; a level with
-    // fewer tiles than blocks also splits the K*K*Cin sum `splits` ways
-    // into partial sums, added up in a fixed order below ----
-    const long long mblocks = (pix + kBM - 1) / kBM;
-    const long long nblocks = (L.n_out + kBN - 1) / kBN;
-    const long long tiles = cells * mblocks * nblocks;
-    // channel-tiled last level: channel block outermost, so concurrent
-    // blocks share one slice of the weights (c_tiles changes no value)
-    const bool nmajor = KTILED && last && d.c_tiles > 1;
-    for (long long u = blockIdx.x; u < tiles * splits; u += gridDim.x) {
-      const int sp = (int)(u % splits);
-      const long long tile = u / splits;
-      long long cell, mb, nb;
-      if (nmajor) {
-        nb = tile / (cells * mblocks);
-        const long long rest = tile % (cells * mblocks);
-        cell = rest / mblocks;
-        mb = rest % mblocks;
-      } else {
-        nb = tile % nblocks;
-        const long long rest = tile / nblocks;
-        mb = rest % mblocks;
-        cell = rest / mblocks;
-      }
-      // END: the conv of an all-zero tile is the bias (uniform per block)
-      const bool dead = can_skip && __ldcg(live + cell * d.q + l) == 0;
-      if (dead && splits > 1) continue;  // the reduction emits the bias
-      float acc[kTM][kTN];
-#pragma unroll
-      for (int a = 0; a < kTM; ++a) {
-#pragma unroll
-        for (int e = 0; e < kTN; ++e) acc[a][e] = 0.f;
-      }
-      if (!dead) {
-        const int ij = (int)(cell % cells2);
-        const int i = ij / d.alpha, j = ij % d.alpha;
-        const long long b = cell / cells2;
-        const float* tcell = tin + cell * d.cap;
-        const T* xcell = x + ((b * d.padded + (long long)i * d.stride0) *
-                                  d.padded +
-                              (long long)j * d.stride0) *
-                                 d.c0;
-        const long long row = l == 0 ? (long long)d.padded : L.in_size;
-        const int s0 = (int)((long long)sp * ksteps / splits);
-        const int s1 = (int)((long long)(sp + 1) * ksteps / splits);
-        for (int k0 = s0 * kBK; k0 < s1 * kBK; k0 += kBK) {
-          // gather the input tile: k = (kh * K + kw) * Cin + ci, the HWIO
-          // weight row order; ci is contiguous in memory
-          for (int e = threadIdx.x; e < kBK * kBM; e += kThreads) {
-            const int m = e / kBK, kk = e % kBK;
-            const int k = k0 + kk;
-            const long long p = mb * kBM + m;
-            float v = 0.f;
-            if (k < kdim && p < pix) {
-              const int ci = k % L.n_in, kwh = k / L.n_in;
-              const int kh = kwh / L.K, kw = kwh % L.K;
-              const long long r = p / osz, c = p % osz;
-              const long long at =
-                  ((r * L.S + kh) * row + c * L.S + kw) * L.n_in + ci;
-              v = l == 0 ? to_f32(xcell[at]) : __ldcg(tcell + at);
-            }
-            As[kk][m] = v;
-          }
-          for (int e = threadIdx.x; e < kBK * kBN; e += kThreads) {
-            const int kk = e / kBN, n = e % kBN;
-            const int k = k0 + kk;
-            const long long co = nb * kBN + n;
-            Bs[kk][n] = (k < kdim && co < L.n_out)
-                            ? to_f32(w[L.w_off + (long long)k * L.n_out + co])
-                            : 0.f;
-          }
-          __syncthreads();
-#pragma unroll
-          for (int kk = 0; kk < kBK; ++kk) {
-            float av[kTM], bv[kTN];
-#pragma unroll
-            for (int a = 0; a < kTM; ++a) av[a] = As[kk][ty * kTM + a];
-#pragma unroll
-            for (int e = 0; e < kTN; ++e) bv[e] = Bs[kk][tx + e * kGX];
-#pragma unroll
-            for (int a = 0; a < kTM; ++a) {
-#pragma unroll
-              for (int e = 0; e < kTN; ++e) {
-                acc[a][e] = fmaf(av[a], bv[e], acc[a][e]);
-              }
-            }
-          }
-          __syncthreads();
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < kTM; ++a) {
-        const long long p = mb * kBM + ty * kTM + a;
-        if (p >= pix) continue;
-#pragma unroll
-        for (int e = 0; e < kTN; ++e) {
-          const int co = (int)(nb * kBN) + tx + e * kGX;
-          if (co >= L.n_out) continue;
-          if (splits > 1) {
-            partial[((sp * cells + cell) * pix + p) * L.n_out + co] =
-                acc[a][e];
-          } else {
-            emit(cell, p, co, acc[a][e]);
-          }
-        }
-      }
+    // ---- conv phase ----
+    if (L.tile == 0) {
+      conv_phase<T, KTILED, kBMLarge>(d, cx, l, smem);
+    } else {
+      conv_phase<T, KTILED, kBMSmall>(d, cx, l, smem);
     }
-    if (splits > 1) {
+    if (L.splits > 1) {
       // ---- split reduction: partial sums in split order, then emit ----
       grid_sync(bar, epoch);
-      const long long outs = cells * pix * L.n_out;
-      for (long long it = tid; it < outs; it += nthreads) {
-        const int co = (int)(it % L.n_out);
-        const long long p = (it / L.n_out) % pix;
-        const long long cell = it / ((long long)L.n_out * pix);
+      const int pix = L.out_size * L.out_size;
+      const int outs = n_cells(d) * pix * L.n_out;
+      int flag_cell = -1;  // the cell whose live flag `alive` holds
+      bool alive = true;
+      for (int it = tid; it < outs; it += nthreads) {
+        const int co = it % L.n_out, p = (it / L.n_out) % pix;
+        const int cell = it / (L.n_out * pix);
+        if (can_skip && cell != flag_cell) {
+          alive = __ldcg(live + cell * d.q + l) != 0;
+          flag_cell = cell;
+        }
         float acc = 0.f;
-        if (!(can_skip && __ldcg(live + cell * d.q + l) == 0)) {
-          for (int sp = 0; sp < splits; ++sp) {
-            acc += __ldcg(partial + sp * outs + it);
+        if (alive) {
+          for (int sp = 0; sp < L.splits; ++sp) {
+            acc += __ldcg(partial + static_cast<long long>(sp) * outs + it);
           }
         }
-        emit(cell, p, co, acc);
+        flag_live(live, cell * d.q + l + 1, cx.emit(d, l, cell, p, co, acc));
       }
     }
 
     // ---- pool phase: maxpool epilogue of the conv tile, then its mask ----
-    if (pooled) {
+    if (L.pool_k > 0) {
       grid_sync(bar, epoch);
-      const int po = L.pool_out;
-      const long long ppix = (long long)po * po;
-      const long long ptotal = cells * ppix * L.n_out;
-      for (long long it = tid; it < ptotal; it += nthreads) {
-        const int co = (int)(it % L.n_out);
-        const long long rest = it / L.n_out;
-        const long long p = rest % ppix;
-        const long long cell = rest / ppix;
-        const int pr = (int)(p / po), pc = (int)(p % po);
-        const int ij = (int)(cell % cells2);
-        const int i = ij / d.alpha, j = ij % d.alpha;
-        const float* tc = tconv + cell * d.cap;
+      const int po = L.pool_out, osz = L.out_size, ppix = po * po;
+      const int ptotal = n_cells(d) * ppix * L.n_out;
+      for (int it = tid; it < ptotal; it += nthreads) {
+        const int co = it % L.n_out, rest = it / L.n_out;
+        const int p = rest % ppix, cell = rest / ppix;
+        const int pr = p / po, pc = p % po;
+        const int a2 = d.alpha * d.alpha;
+        const int ij = cell % a2, i = ij / d.alpha, j = ij % d.alpha;
+        const T* tc = scratch + 2 * scratch_buf(d) + cell * d.cap;
         float m = -INFINITY;
         for (int pi = 0; pi < L.pool_k; ++pi) {
           for (int pj = 0; pj < L.pool_k; ++pj) {
-            const long long q =
-                (long long)(pr * L.pool_s + pi) * osz + (pc * L.pool_s + pj);
-            m = fmaxf(m, __ldcg(tc + q * L.n_out + co));
+            const int q = (pr * L.pool_s + pi) * osz + pc * L.pool_s + pj;
+            m = fmaxf(m, ldcg(tc + q * L.n_out + co));
           }
         }
         if (!in_range(L.pool_o_base + i * L.pool_o_step + pr, L.pool_valid) ||
             !in_range(L.pool_o_base + j * L.pool_o_step + pc, L.pool_valid)) {
           m = 0.f;
         }
-        const T v = from_f32<T>(m);
-        if (last) {
-          const long long b = cell / cells2;
-          out[((b * out_w + (long long)i * region + pr) * out_w +
-                (long long)j * region + pc) *
-                   c_last +
-               co] = v;
-        } else {
-          const float vf = to_f32(v);
-          tout[cell * d.cap + p * L.n_out + co] = vf;
-          if (vf > 0.f) live[cell * d.q + l + 1] = 1;
-        }
+        flag_live(live, cell * d.q + l + 1,
+                  cx.put(d, l, cell, pr, pc, po, co, m));
       }
     }
-    if (!last) grid_sync(bar, epoch);
+    if (l != d.q - 1) grid_sync(bar, epoch);
   }
 
   // ---- skip map: every level's live flag was published by the barrier
   // that preceded that level ----
-  const long long nflags = cells * d.q;
-  for (long long it = tid; it < nflags; it += nthreads) {
-    const int l = (int)(it % d.q);
-    const bool skipped = l > 0 && d.relu && d.end_skip && __ldcg(live + it) == 0;
+  for (int it = tid; it < n_cells(d) * d.q; it += nthreads) {
+    const int l = it % d.q;
+    const bool skipped =
+        l > 0 && d.relu && d.end_skip && __ldcg(live + it) == 0;
     skip[it] = skipped ? 1 : 0;
   }
 }
 
 bool parse(const long long* v, int n, Desc* d) {
   if (n < kHeader) return false;
-  d->batch = (int)v[0];
-  d->alpha = (int)v[1];
-  d->tile0 = (int)v[2];
-  d->stride0 = (int)v[3];
-  d->padded = (int)v[4];
-  d->c0 = (int)v[5];
-  d->q = (int)v[6];
-  d->relu = (int)v[7];
-  d->end_skip = (int)v[8];
-  d->c_tiles = (int)v[9];
+  d->batch = static_cast<int>(v[0]);
+  d->alpha = static_cast<int>(v[1]);
+  d->tile0 = static_cast<int>(v[2]);
+  d->stride0 = static_cast<int>(v[3]);
+  d->padded = static_cast<int>(v[4]);
+  d->c0 = static_cast<int>(v[5]);
+  d->q = static_cast<int>(v[6]);
+  d->relu = static_cast<int>(v[7]);
+  d->end_skip = static_cast<int>(v[8]);
+  d->c_tiles = static_cast<int>(v[9]);
   d->cap = v[10];
-  d->grid = (int)v[11];
+  d->grid = static_cast<int>(v[11]);
   if (d->q < 1 || d->q > kMaxLevels || n != kHeader + d->q * kPerLevel ||
       d->batch < 1 || d->alpha < 1 || d->c_tiles < 1 || d->grid < 1) {
     return false;
@@ -403,28 +771,38 @@ bool parse(const long long* v, int n, Desc* d) {
   for (int l = 0; l < d->q; ++l) {
     const long long* s = v + kHeader + l * kPerLevel;
     Level& L = d->lv[l];
-    L.K = (int)s[0];
-    L.S = (int)s[1];
-    L.n_in = (int)s[2];
-    L.n_out = (int)s[3];
-    L.in_size = (int)s[4];
-    L.out_size = (int)s[5];
-    L.o_base = (int)s[6];
-    L.o_step = (int)s[7];
-    L.valid = (int)s[8];
-    L.pool_k = (int)s[9];
-    L.pool_s = (int)s[10];
-    L.pool_out = (int)s[11];
-    L.pool_o_base = (int)s[12];
-    L.pool_o_step = (int)s[13];
-    L.pool_valid = (int)s[14];
+    L.K = static_cast<int>(s[0]);
+    L.S = static_cast<int>(s[1]);
+    L.n_in = static_cast<int>(s[2]);
+    L.n_out = static_cast<int>(s[3]);
+    L.in_size = static_cast<int>(s[4]);
+    L.out_size = static_cast<int>(s[5]);
+    L.o_base = static_cast<int>(s[6]);
+    L.o_step = static_cast<int>(s[7]);
+    L.valid = static_cast<int>(s[8]);
+    L.pool_k = static_cast<int>(s[9]);
+    L.pool_s = static_cast<int>(s[10]);
+    L.pool_out = static_cast<int>(s[11]);
+    L.pool_o_base = static_cast<int>(s[12]);
+    L.pool_o_step = static_cast<int>(s[13]);
+    L.pool_valid = static_cast<int>(s[14]);
     L.w_off = s[15];
-    L.b_off = (int)s[16];
-    L.splits = (int)s[17];
-    if (L.splits < 1) return false;
+    L.b_off = static_cast<int>(s[16]);
+    L.splits = static_cast<int>(s[17]);
+    L.tile = static_cast<int>(s[18]);
+    if (L.splits < 1 || (L.tile != 0 && L.tile != 1)) return false;
   }
   if (d->lv[d->q - 1].n_out % d->c_tiles != 0) return false;
   return true;
+}
+
+// Allow the kernel its dynamic shared memory; before every occupancy query
+// and launch, so both see the kernel that runs.
+template <typename T, bool KTILED>
+cudaError_t set_smem() {
+  return cudaFuncSetAttribute(pyramid_kernel<T, KTILED>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_bytes<T>());
 }
 
 // How many blocks of the kernel can be co-resident on the current device:
@@ -436,8 +814,10 @@ cudaError_t resident_blocks(int* blocks) {
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
+  e = set_smem<T, KTILED>();
+  if (e != cudaSuccess) return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, pyramid_kernel<T, KTILED>, kThreads, 0);
+      &per_sm, pyramid_kernel<T, KTILED>, kThreads, smem_bytes<T>());
   if (e != cudaSuccess) return e;
   *blocks = per_sm * sms;
   return *blocks > 0 ? cudaSuccess : cudaErrorLaunchOutOfResources;
@@ -456,7 +836,7 @@ cudaError_t launch(const Desc& d, const void* x, const void* w, const void* b,
   const T* bp = static_cast<const T*>(b);
   T* op = static_cast<T*>(out);
   int* sp = static_cast<int*>(skip);
-  float* scr = static_cast<float*>(scratch);
+  T* scr = static_cast<T*>(scratch);
   float* part = static_cast<float*>(partial);
   int* lv = static_cast<int*>(live);
   unsigned int* br = static_cast<unsigned int*>(bar);
@@ -464,8 +844,9 @@ cudaError_t launch(const Desc& d, const void* x, const void* w, const void* b,
                   (void*)&op, (void*)&sp,   (void*)&scr, (void*)&part,
                   (void*)&lv, (void*)&br};
   e = cudaLaunchCooperativeKernel((const void*)pyramid_kernel<T, KTILED>,
-                                  dim3((unsigned)d.grid), dim3(kThreads),
-                                  args, 0, stream);
+                                  dim3(static_cast<unsigned>(d.grid)),
+                                  dim3(kThreads), args, smem_bytes<T>(),
+                                  stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -475,18 +856,18 @@ int entry(int dtype, const long long* desc, int n, const void* x,
           const void* w, const void* b, void* out, void* skip, void* scratch,
           void* partial, void* live, void* bar, void* stream) {
   Desc d;
-  if (!parse(desc, n, &d)) return (int)cudaErrorInvalidValue;
-  if (KTILED && d.c_tiles < 2) return (int)cudaErrorInvalidValue;
+  if (!parse(desc, n, &d)) return static_cast<int>(cudaErrorInvalidValue);
+  if (KTILED && d.c_tiles < 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return (int)launch<float, KTILED>(d, x, w, b, out, skip, scratch,
-                                      partial, live, bar, s);
+    return static_cast<int>(launch<float, KTILED>(
+        d, x, w, b, out, skip, scratch, partial, live, bar, s));
   }
   if (dtype == 1) {
-    return (int)launch<__nv_bfloat16, KTILED>(d, x, w, b, out, skip, scratch,
-                                              partial, live, bar, s);
+    return static_cast<int>(launch<__nv_bfloat16, KTILED>(
+        d, x, w, b, out, skip, scratch, partial, live, bar, s));
   }
-  return (int)cudaErrorInvalidValue;
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -517,14 +898,15 @@ int fused_pyramid_ktiled(int dtype, const long long* desc, int n,
 // kernel: the co-resident block count on the current device.
 int fused_pyramid_resident_blocks(int dtype, int ktiled, int* blocks) {
   if (dtype == 0) {
-    return (int)(ktiled ? resident_blocks<float, true>(blocks)
-                        : resident_blocks<float, false>(blocks));
+    return static_cast<int>(ktiled ? resident_blocks<float, true>(blocks)
+                                   : resident_blocks<float, false>(blocks));
   }
   if (dtype == 1) {
-    return (int)(ktiled ? resident_blocks<__nv_bfloat16, true>(blocks)
-                        : resident_blocks<__nv_bfloat16, false>(blocks));
+    return static_cast<int>(
+        ktiled ? resident_blocks<__nv_bfloat16, true>(blocks)
+               : resident_blocks<__nv_bfloat16, false>(blocks));
   }
-  return (int)cudaErrorInvalidValue;
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* fused_pyramid_error_string(int err) {

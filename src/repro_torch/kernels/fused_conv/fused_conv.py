@@ -47,11 +47,14 @@ from repro_torch.kernels import build
 # int64 descriptor layout shared with csrc/fused_pyramid.cu (kHeader,
 # kPerLevel); the CUDA side rejects a descriptor of any other length
 _HEADER = 12
-_PER_LEVEL = 18
+_PER_LEVEL = 19
 _MAX_LEVELS = 16
 _DTYPE_CODES = {"float32": 0, "bfloat16": 1}
-# the kernel's conv tile (kBM pixels x kBN channels) and K*K*Cin step (kBK)
-_TILE_M, _TILE_N, _TILE_K = 64, 64, 16
+# the kernel's conv tiles: _TILE_M[tile] pixels (kBMLarge, kBMSmall) x
+# _TILE_N channels (kBN), and its K*K*Cin step (kBK)
+_TILE_M, _TILE_N, _TILE_K = (128, 64), 64, 32
+# scratch values per cell are a multiple of this (16-byte aligned cells)
+_CAP_ALIGN = 8
 
 
 class PyramidKernel(build.CudaKernel):
@@ -235,22 +238,38 @@ def fused_pyramid_kernel(
                    c_tiles, weights_flat, cdt)
 
 
+def _tile_shape(pix: int) -> int:
+    """The conv tile of a level of ``pix`` output pixels per cell, as the
+    descriptor's index into ``_TILE_M``: the large tile, unless it would
+    cover at least 25 % more rows than the small one (a 7 x 7 level
+    fills 49 of 128 rows but 49 of 64)."""
+    large, small = (-(-pix // m) * m for m in _TILE_M)
+    return 1 if 4 * large >= 5 * small else 0
+
+
+def level_tiles(program: TileProgram) -> list[str]:
+    """Each conv level's tile as ``"<pixels>x<channels>"``."""
+    return [f"{_TILE_M[_tile_shape(p.out_size ** 2)]}x{_TILE_N}"
+            for p in program.levels]
+
+
 def _splits(tiles: int, kdim: int, grid: int) -> int:
     """How many ways a level splits its K*K*Cin sum across blocks: enough
     to give every block of the grid work when the level has fewer conv
-    tiles than blocks (deep layers at batch 1), keeping at least two
-    K-steps per split; 1 when the tiles alone fill the grid."""
+    tiles than blocks (deep layers at batch 1), keeping at least one
+    K-step per split; 1 when the tiles alone fill the grid."""
     if tiles >= grid:
         return 1
-    return max(1, min(grid // tiles, -(-kdim // _TILE_K) // 2))
+    return max(1, min(grid // tiles, -(-kdim // _TILE_K)))
 
 
 def _descriptor(program: TileProgram, relu: bool, end_skip: bool,
                 c_tiles: int, batch: int, grid: int
                 ) -> tuple[list[int], int, int]:
     """The int64 launch descriptor (layout in csrc/fused_pyramid.cu), the
-    per-cell scratch capacity in floats, and the floats of split partial
-    sums the launch needs."""
+    per-cell scratch capacity in compute-dtype values, and the floats of
+    split partial sums the launch needs.  Each level's tile (the last
+    field) sets its tile count, hence its K-split."""
     if program.q_convs > _MAX_LEVELS:
         raise ValueError(
             f"the CUDA kernel takes at most {_MAX_LEVELS} conv levels,"
@@ -260,6 +279,7 @@ def _descriptor(program: TileProgram, relu: bool, end_skip: bool,
     cap = max(
         max(p.out_size, p.pool_out) ** 2 * p.n_out for p in program.levels
     )
+    cap = -(-cap // _CAP_ALIGN) * _CAP_ALIGN
     desc = [
         batch, program.alpha, program.tile0, program.stride0,
         program.padded_input, program.levels[0].n_in, program.q_convs,
@@ -269,7 +289,8 @@ def _descriptor(program: TileProgram, relu: bool, end_skip: bool,
     for p, cnt in zip(program.levels, program.level_weight_counts()):
         pk, ps = p.pool if p.pool is not None else (0, 0)
         pix = p.out_size ** 2
-        tiles = cells * -(-pix // _TILE_M) * -(-p.n_out // _TILE_N)
+        tile = _tile_shape(pix)
+        tiles = cells * -(-pix // _TILE_M[tile]) * -(-p.n_out // _TILE_N)
         splits = _splits(tiles, p.K * p.K * p.n_in, grid)
         if splits > 1:
             partial = max(partial, splits * cells * pix * p.n_out)
@@ -278,11 +299,17 @@ def _descriptor(program: TileProgram, relu: bool, end_skip: bool,
             p.o_base, p.o_step, p.valid,
             pk, ps, p.pool_out if p.pool is not None else 0,
             p.pool_o_base, p.pool_o_step, p.pool_valid,
-            w_off, b_off, splits,
+            w_off, b_off, splits, tile,
         ]
         w_off += cnt
         b_off += p.n_out
     assert len(desc) == _HEADER + _PER_LEVEL * program.q_convs
+    if max(3 * cells * cap, partial) >= 2 ** 31:
+        raise ValueError(
+            f"the launch needs {3 * cells * cap} scratch values and {partial}"
+            " partial sums; the kernel indexes them in 32 bits: lower the"
+            " batch"
+        )
     return desc, cap, partial
 
 
@@ -330,7 +357,7 @@ def prepare_launch(x_padded, weights, biases, program, relu, end_skip,
         device=dev,
     )
     skip = torch.empty((B, alpha, alpha, q), dtype=torch.int32, device=dev)
-    scratch = torch.empty(3 * cells * cap, dtype=torch.float32, device=dev)
+    scratch = torch.empty(3 * cells * cap, dtype=cdt, device=dev)
     part = torch.empty(max(partial, 1), dtype=torch.float32, device=dev)
     live = torch.zeros(cells * q, dtype=torch.int32, device=dev)
     bar = torch.zeros(2, dtype=torch.int32, device=dev)

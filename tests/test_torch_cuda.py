@@ -57,12 +57,54 @@ STRIDED = FusionSpec(
     input_size=16,
 )
 
+# the edges of the conv tiles: an RGB 7x7/2 level (the scalar gather, K*K*Cin
+# = 147 not a multiple of the K step) at an input of 64
+RGB_K7_S2 = FusionSpec(
+    levels=(
+        FusedLevel("conv", K=7, S=2, pad=3, n_in=3, n_out=64),
+        FusedLevel("conv", K=3, S=1, pad=1, n_in=64, n_out=64),
+    ),
+    input_size=64,
+)
+# Cout of 6 and 96, neither a multiple of the channel tile
+COUT_6_96 = FusionSpec(
+    levels=(
+        FusedLevel("conv", K=3, S=1, pad=1, n_in=8, n_out=6),
+        FusedLevel("conv", K=3, S=1, pad=1, n_in=6, n_out=96),
+    ),
+    input_size=16,
+)
+# 7 x 7 levels, below every pixel tile
+LEVEL_7X7 = FusionSpec(
+    levels=(
+        FusedLevel("conv", K=3, S=1, pad=1, n_in=32, n_out=64),
+        FusedLevel("conv", K=3, S=1, pad=1, n_in=64, n_out=64),
+    ),
+    input_size=7,
+)
+# Q = 4 with two pools, run at alpha = 4
+Q4_POOLS = FusionSpec(
+    levels=(
+        FusedLevel("conv", K=3, S=1, pad=1, n_in=3, n_out=16),
+        FusedLevel("pool", K=2, S=2, pad=0, n_in=16, n_out=16),
+        FusedLevel("conv", K=3, S=1, pad=1, n_in=16, n_out=32),
+        FusedLevel("conv", K=3, S=1, pad=1, n_in=32, n_out=32),
+        FusedLevel("pool", K=2, S=2, pad=0, n_in=32, n_out=32),
+        FusedLevel("conv", K=3, S=1, pad=1, n_in=32, n_out=64),
+    ),
+    input_size=32,
+)
+
 # (spec, out_region, c_tiles)
 CASES = {
     "q3_alpha4": (Q3_CHAIN, 1, 1),
     "stem_padded_pool": (STEM, 4, 1),
     "strided_c4": (STRIDED, 8, 4),
     "strided_alpha2_c2": (STRIDED, 4, 2),
+    "rgb_k7_s2_in64": (RGB_K7_S2, 16, 1),
+    "cout_6_96": (COUT_6_96, 8, 1),
+    "level_7x7": (LEVEL_7X7, 7, 1),
+    "q4_pools_alpha4": (Q4_POOLS, 2, 1),
 }
 
 
@@ -127,6 +169,38 @@ def test_kernel_matches_plain(cuda, name, sparse, dtype):
         assert 0 < int(skip[..., 1:].sum()) < skip[..., 1:].numel()
     err = float((y.float() - y_ref.float()).abs().max())
     assert err <= _tol(y_ref.float(), tdt), err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["q4_pools_alpha4", "strided_c4"])
+def test_launches_are_deterministic(cuda, name, dtype):
+    """Two launches of one pyramid agree bit for bit: no atomics on sums,
+    and split partial sums are added in split order."""
+    spec, region, c_tiles = CASES[name]
+    prog = compile_program(spec, region, compute_dtype=dtype)
+    tdt = getattr(torch, dtype)
+    p = init_pyramid_params(spec, seed=6, device=cuda)
+    gen = torch.Generator().manual_seed(7)
+    B, n = 2, spec.input_size
+    x = torch.randn((B, n, n, spec.levels[0].n_in), generator=gen)
+    xp = torch.nn.functional.pad(
+        x.to(cuda, tdt), (0, 0, prog.pad_lo, prog.pad_hi, prog.pad_lo,
+                          prog.pad_hi)
+    ).contiguous()
+    ws = [w.to(tdt) for w in p.weights]
+    bs = [b.to(tdt) for b in p.biases]
+    kernel = fc.PYRAMID_KTILED if c_tiles > 1 else fc.PYRAMID
+    grid = kernel.resident_blocks(fc._DTYPE_CODES[dtype], cuda)
+    desc, _, _ = fc._descriptor(prog, True, True, c_tiles, B, grid)
+    splits = [desc[fc._HEADER + fc._PER_LEVEL * l + fc._PER_LEVEL - 2]
+              for l in range(prog.q_convs)]
+    assert max(splits) > 1  # a K-split level is part of the check
+    y1, s1 = fc.fused_pyramid_kernel(xp, ws, bs, program=prog,
+                                     c_tiles=c_tiles)
+    y2, s2 = fc.fused_pyramid_kernel(xp, ws, bs, program=prog,
+                                     c_tiles=c_tiles)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
 def test_streamed_flat_weights_match_resident(cuda):

@@ -254,36 +254,85 @@ def test_wrapper_contract_errors():
 
 def test_descriptor_layout():
     """The int64 launch descriptor the CUDA entry points parse: header, then
-    18 fields per conv level with running weight/bias offsets and the
-    level's K-split."""
+    19 fields per conv level with running weight/bias offsets, the level's
+    K-split and its conv tile."""
     spec = _port(Q3_CHAIN)
     prog = compile_program(spec, 4)
     desc, cap, partial = fc._descriptor(prog, True, True, 2, batch=3,
                                         grid=512)
+    assert fc._PER_LEVEL == 19
     assert len(desc) == fc._HEADER + fc._PER_LEVEL * prog.q_convs
     assert desc[:10] == [3, prog.alpha, prog.tile0, prog.stride0,
                          prog.padded_input, 2, 3, 1, 1, 2]
-    assert desc[10] == cap == max(
+    need = max(
         max(p.out_size, p.pool_out) ** 2 * p.n_out for p in prog.levels
     )
+    # the per-cell capacity, rounded up so every cell starts 16-byte aligned
+    assert desc[10] == cap == -(-need // fc._CAP_ALIGN) * fc._CAP_ALIGN
+    assert cap % 8 == 0 and need <= cap < need + 8
     assert desc[11] == 512
     lvl1 = desc[fc._HEADER + fc._PER_LEVEL:][: fc._PER_LEVEL]
-    assert lvl1[-3:-1] == [prog.level_weight_counts()[0], 6]
-    splits = [desc[fc._HEADER + fc._PER_LEVEL * l + fc._PER_LEVEL - 1]
+    assert lvl1[-4:-2] == [prog.level_weight_counts()[0], 6]
+    fields = [desc[fc._HEADER + fc._PER_LEVEL * l:][: fc._PER_LEVEL]
               for l in range(prog.q_convs)]
+    splits = [f[-2] for f in fields]
+    tiles = [f[-1] for f in fields]
     assert all(s >= 1 for s in splits)
+    assert tiles == [fc._tile_shape(p.out_size ** 2) for p in prog.levels]
+    assert fc.level_tiles(prog) == [f"{fc._TILE_M[t]}x{fc._TILE_N}"
+                                    for t in tiles]
+    for p, s, t in zip(prog.levels, splits, tiles):
+        n_tiles = (3 * prog.alpha ** 2 * -(-p.out_size ** 2 // fc._TILE_M[t])
+                   * -(-p.n_out // fc._TILE_N))
+        assert s == fc._splits(n_tiles, p.K * p.K * p.n_in, 512)
     assert partial == max(
         [s * 3 * prog.alpha ** 2 * p.out_size ** 2 * p.n_out
          for s, p in zip(splits, prog.levels) if s > 1], default=0
     )
 
 
+def test_descriptor_rejects_sizes_past_32_bits():
+    """The kernel indexes scratch and partial sums in 32 bits; a launch
+    that would need more is refused before it reaches the card."""
+    prog = compile_program(_port(Q3_CHAIN), 4)
+    fc._descriptor(prog, True, True, 1, batch=3, grid=512)
+    with pytest.raises(ValueError, match="32 bits"):
+        fc._descriptor(prog, True, True, 1, batch=2 ** 20, grid=512)
+
+
 @pytest.mark.parametrize(
     "tiles,kdim,grid,want",
     [(2000, 4608, 1056, 1),   # the tiles fill the grid: no split
      (16, 4608, 1056, 66),    # ResNet-18 b7 at batch 1: fill the grid
-     (200, 147, 1056, 5),     # the stem: at least two K-steps per split
-     (10, 16, 1056, 1)],      # a single K-step cannot split
+     (200, 147, 1056, 5),     # the stem: at least one K-step per split
+     (10, 16, 1056, 1),       # a single K-step cannot split
+     # ResNet-18 b7 (7 x 7, 512 channels) at batch 1 on 264 blocks, with
+     # the small tile (8 tiles) and with the large one (also 8)
+     (8, 4608, 264, 33),
+     # b0 (56 x 56, 64 channels) at batch 1: the large tile (25 tiles),
+     # the small one (49 tiles)
+     (25, 576, 264, 10),
+     (49, 576, 264, 5),
+     # batch 8: the large tile's 200 tiles split, the small one's 392 fill
+     # the grid
+     (200, 576, 264, 1),
+     (392, 576, 264, 1)],
 )
 def test_k_split_fills_the_grid(tiles, kdim, grid, want):
     assert fc._splits(tiles, kdim, grid) == want
+
+
+@pytest.mark.parametrize(
+    "size,want",
+    [(7, 1),     # ResNet-18 b7: 49 pixels fill 49 of 64 rows, not of 128
+     (8, 1),     # exactly one small tile
+     (3, 1),
+     (14, 0),    # 196 pixels: two large tiles pad as much as four small
+     (28, 0),
+     (56, 0),    # ResNet-18 b0: 25 large tiles, 2 % padding
+     (112, 0)],  # the stem: 98 large tiles exactly
+)
+def test_tile_shape_per_level(size, want):
+    """The wrapper picks the small tile for a level that a large tile would
+    leave mostly empty (7 x 7) and the large one for a 56 x 56 level."""
+    assert fc._tile_shape(size * size) == want
