@@ -19,9 +19,10 @@ any failure exits non-zero:
 
 1. build  — compile every kernel of the three paths from ``src/repro_torch/csrc``
    (one nvcc per source, started together); print the card's name and
-   power limit, torch, CUDA and nvcc versions, the pyramid kernels'
-   ``ptxas`` lines (registers, stack, spills) and their co-resident block
-   count per dtype.
+   power limit, torch, CUDA and nvcc versions, the pyramid kernels' and
+   the SSD scan's ``ptxas`` lines (registers, stack, spills), the pyramid
+   kernels' co-resident block count per dtype and the SSD scan's blocks a
+   SM per instance at the Mamba-2 model's (P, N, Q).
 2. pyramids — for every pyramid of the four plans below, the kernel against
    its plain PyTorch version on the card, on dense inputs and on sparse
    ones with negative-shifted biases (the END cascade): skip maps must be
@@ -58,9 +59,11 @@ any failure exits non-zero:
    kernel's place; layer 0's x, B, C with a slowly decaying state (the
    carried state weighs in each chunk) against the plain version and
    against a run one chunk shorter advanced by hand; the kernel timed (the
-   48 bare launches, the 48 wrapper calls, the plain versions) and
-   bounded; the bf16 prefill of the prefill_32k cell (32 x 32,768 tokens)
-   with its launch counts checked, timed; the f32 prefill of 2 x 512
+   48 bare launches, the 48 wrapper calls, the plain versions, and the
+   float32 instance's bare launch on layer 0's widened inputs) and bounded
+   at the peak rate of x's type (``ops_ms_f32`` beside it); the bf16
+   prefill of the prefill_32k cell (32 x 32,768 tokens) with its launch
+   counts checked, timed; the f32 prefill of 2 x 512
    through the kernel against 512 decode steps over the same prompt
    (``ssd_decode_step``, no kernel) within ``_recurrence_tol``; ``serve``
    at bf16 answering 4 requests.
@@ -805,6 +808,10 @@ class Lm:
         if not (err32 <= tol32 and serr32 <= stol32):
             raise AssertionError(f"lm layer 0 at f32: y err {err32} (tol"
                                  f" {tol32}), state err {serr32} (tol {stol32})")
+        stream = torch.cuda.current_stream().cuda_stream
+        f32_ms = _median_ms(
+            lambda: kd.launch(*args32, ky, ks, layers[0]["chunk"],
+                              stream=stream), torch)
         del args32, ky, ks, py, ps
         slow = self.slow_decay(layers[0], kd)
         timing = self.time_kernel(layers, kd)
@@ -831,6 +838,7 @@ class Lm:
             y_max_abs_err=err_y, state_max_abs_err=err_s,
             max_abs_y=mag_y, max_abs_state=mag_s,
             f32_layer0_y_max_abs_err=err32, f32_layer0_state_max_abs_err=serr32,
+            f32_layer0_ms=f32_ms,
             **slow,
             logits_vs_plain_forward=float((lg - plain_logits).abs().max()),
             max_abs_logit=float(lg.abs().max()),
@@ -981,9 +989,12 @@ class Lm:
         function sums over k <= q only, Q(Q+1)/2 of the Q^2 pairs: 2 N
         Q(Q+1)/2 FLOPs for the scores and H 2 P Q(Q+1)/2 for the diagonal
         blocks, then H 2 Q N P for the state's output term and as many for
-        the state update, at the float32 FMA rate; against x, y, B, C, dt,
-        A, D read or written once and the final state written once, at the
-        HBM rate."""
+        the state update, each product once, at the peak rate of x's type
+        (bf16 on the tensor cores, as the pyramid bound takes its dtype's);
+        against x, y, B, C, dt, A, D read or written once and the final
+        state written once, at the HBM rate.  ``ops_ms_f32`` prices the
+        same FLOPs at the float32 rate, as the bound did before the
+        products moved to the tensor cores."""
         flops = nbytes = 0
         for lay in layers:
             x, dt, A, B, C, D = lay["args"]
@@ -996,10 +1007,13 @@ class Lm:
                        + (B.numel() + C.numel()) * B.element_size()
                        + (dt.numel() + A.numel() + D.numel()) * 4
                        + lay["state"].numel() * 4)
+        dtype = str(layers[0]["args"][0].dtype).removeprefix("torch.")
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / PEAK_FLOPS["float32"] * 1e3
+        ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
         return dict(bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
-                    ops_ms=ops_ms, gflop_per_layer=flops / len(layers) / 1e9,
+                    ops_ms=ops_ms,
+                    ops_ms_f32=flops / PEAK_FLOPS["float32"] * 1e3,
+                    gflop_per_layer=flops / len(layers) / 1e9,
                     bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
     def recurrence_f32(self) -> dict:
@@ -1093,6 +1107,7 @@ class Lm:
                             pre["slow_decay_carry_max_abs_err"]),
             ms=pre["ms"], call_ms=pre["call_ms"], plain_ms=pre["plain_ms"],
             bound_ms=pre["bound_ms"], bound_by=pre["bound_by"],
+            ops_ms_f32=pre["ops_ms_f32"], f32_layer0_ms=pre["f32_layer0_ms"],
             # no single PyTorch call computes the SSD chunk scan
             library_ms=None,
         )
@@ -1112,16 +1127,31 @@ def _forward_ms(run, torch) -> float:
 
 
 def print_build_report(reports, fc, device) -> None:
-    """The pyramid kernels' ptxas lines (entry, registers, stack and
-    spills) from this run's build, and each pyramid kernel's co-resident
-    block count per dtype: the grid of its cooperative launch."""
-    for line in reports.get("fused_pyramid", "").splitlines():
-        if any(w in line for w in ("Compiling entry", "registers", "spill")):
-            print(f"ptxas fused_pyramid: {line.strip()}", flush=True)
+    """The pyramid kernels' and the SSD scan's ptxas lines (entry,
+    registers, stack and spills) from this run's build; each pyramid
+    kernel's co-resident block count per dtype (the grid of its
+    cooperative launch) and the SSD scan's blocks a SM per instance at the
+    Mamba-2 model's head width, state and chunk."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan as kd
+
+    for lib in ("fused_pyramid", "ssd_scan"):
+        for line in reports.get(lib, "").splitlines():
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill")):
+                print(f"ptxas {lib}: {line.strip()}", flush=True)
     for k in fc.KERNELS:
         for name, code in fc._DTYPE_CODES.items():
             print(f"resident blocks {k.symbol} {name}:"
                   f" {k.resident_blocks(code, device)}", flush=True)
+    cfg = get_config(LM_ARCH)
+    shape = (cfg.ssm_head_dim, cfg.ssm_state, cfg.ssd_chunk)
+    for dtype in (torch.bfloat16, torch.float32):
+        print(f"resident blocks a SM {kd.SSD_SCAN.symbol} {dtype} at"
+              f" (P, N, Q) = {shape}:"
+              f" {kd.resident_blocks(*shape, dtype, device)}", flush=True)
 
 
 def main(argv=None) -> int:

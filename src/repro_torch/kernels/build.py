@@ -3,8 +3,9 @@
 Each source under ``src/repro_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, at first use,
 into ``build/`` at the root of the checkout (listed in ``.gitignore``).  The
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded.  :func:`build`
+sources share the header ``csrc/sm90_mma.cuh``.  The library's file name
+carries a hash of its source, the headers and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.  :func:`build`
 starts one ``nvcc`` per source, all at once, and waits for all of them.
 
 :class:`CudaKernel` binds one C entry point of a library and counts its
@@ -62,9 +63,12 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where library ``name`` is (or will be) built: ``build/lib<name>-<hash>.so``
-    with the hash over the source text and the compiler flags."""
+    with the hash over the source text, the shared headers (``csrc/*.cuh``)
+    and the compiler flags."""
     src = CSRC / SOURCES[name]
     digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -4,12 +4,22 @@
 (``src/repro/kernels/ssd_scan/ssd_scan.py``): it launches the hand-written
 CUDA kernel :data:`SSD_SCAN` (C entry ``ssd_scan`` in
 ``src/repro_torch/csrc/ssd_scan.cu``), which replaces ``_ssd_kernel``.  One
-CUDA block walks one (sequence, head)'s chunks in order with the state in
-shared memory, where the TPU grid walked the chunks and kept the state in
-VMEM.  :data:`SSD_SCAN` carries a plain integer ``launches`` count that the
-wrapper bumps where it launches the kernel, and nowhere else.  The source
-file's header says what the kernel computes, what bounds it on the H100
-and how its design answers that.
+CUDA block walks one (sequence, head)'s chunks in order with the float32
+state in shared memory, where the TPU grid walked the chunks and kept the
+state in VMEM.  With bfloat16 ``x``, ``B`` and ``C`` (the Mamba-2 prefill)
+all four products of a chunk run on the tensor cores (``mma.sync`` bf16 ->
+float32): the bf16 operands are exact, and every float32 operand is cut
+into bf16 parts, a high part and the remainders, and multiplied part by
+part.  The masked, decayed scores and the carried state, which reach only
+the bf16 ``y``, take two parts (16 significant bits); the state update's
+weighted x, which reaches the float32 state, takes three (float32's 24),
+so that the float32 contract of :func:`plain_tol` holds even where the
+state's terms cancel.  With float32 inputs the kernel runs float32 FMAs.
+:data:`SSD_SCAN` carries a plain integer ``launches`` count that the
+wrapper bumps where it launches the kernel, and nowhere else;
+:func:`resident_blocks` asks how many blocks an SM holds at once.  The
+source file's header says what the kernel computes, what bounds it on the
+H100 and how its design answers that.
 
 :func:`ssd_scan_plain` is the Pallas body in plain PyTorch: a loop over
 chunks with the float32 state carried between them.  The wrapper takes it
@@ -31,7 +41,7 @@ import torch
 
 from repro_torch.kernels import build
 
-# the widest head the kernel's thread map covers (kMaxP in csrc/ssd_scan.cu)
+# the widest head the kernel's tiling covers (kMaxP in csrc/ssd_scan.cu)
 _MAX_P = 64
 
 SSD_SCAN = build.CudaKernel(
@@ -108,6 +118,22 @@ def ssd_scan_kernel(x, dt, A, B, C, D, *, chunk: int = 64
         launch(x, dt, A, B, C, D, y, state, chunk,
                stream=torch.cuda.current_stream(x.device).cuda_stream)
     return y, state
+
+
+def resident_blocks(P: int, N: int, chunk: int, dtype: torch.dtype,
+                    device: torch.device) -> int:
+    """Blocks of the kernel's ``dtype`` instance that one SM of ``device``
+    holds at once at head width ``P``, state ``N`` and chunk ``chunk``,
+    with the dynamic shared memory a launch at those sizes passes."""
+    query = SSD_SCAN.lib().ssd_scan_resident_blocks
+    query.restype = ctypes.c_int
+    query.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = query(P, N, chunk, int(dtype == torch.bfloat16),
+                   ctypes.byref(blocks))
+    SSD_SCAN.check(rc, "occupancy query")
+    return blocks.value
 
 
 def launch(x, dt, A, B, C, D, y, state, chunk: int, *, stream: int) -> None:

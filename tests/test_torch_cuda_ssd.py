@@ -1,12 +1,16 @@
 """The SSD chunk-scan kernel (kernel D) and the Mamba-2 path on the card:
 the kernel against its plain PyTorch version at float32 and bfloat16, for
 the model's chunk of 256 and the reference kernel's default of 64, with
-ragged sequence lengths, head counts that are not a multiple of 8 and the
-model's ``(P, N) = (64, 128)``, launch counts checked; at float32 against
-the token-by-token recurrence ``ssd_ref`` and the model's ``ssd_chunked``;
-with a slowly decaying state, whose carry from chunk to chunk shows in
-the result; and the reduced Mamba-2 model on CUDA against the same model
-on the CPU.
+ragged sequence lengths, head counts that are not a multiple of 8, the
+model's ``(P, N) = (64, 128)`` and widths the tensor-core tiling must pad
+(N = 20 and 40, P = 13 and 24, Q = 16), launch counts checked; at float32
+against the token-by-token recurrence ``ssd_ref`` and the model's
+``ssd_chunked``; with a slowly decaying state, whose carry from chunk to
+chunk shows in the result, with one head's x 10^3 larger than the rest's,
+and with sums that cancel to 2^-10 of their terms, where fewer bf16 parts
+of a float32 operand would show; the bare launch against the wrapper bit
+for bit; two bf16 blocks a SM at the model's shape; and the reduced
+Mamba-2 model on CUDA against the same model on the CPU.
 
 Every test here needs an NVIDIA card with nvcc and skips elsewhere.  Run on
 the card with ``PYTHONPATH=src python -m pytest -m cuda
@@ -64,9 +68,12 @@ def test_ssd_library_builds(cuda):
 
 
 # (b, S, H, P, N): the model's head (64, 128) with 5 and 3 heads and a
-# ragged S; a narrow head; one chunk shorter than a 64-row slab
+# ragged S; a narrow head; one chunk shorter than a 64-row slab; N a
+# multiple of 8 but not of 16; P = 24 (padded to the tile's 64); P odd and
+# N not a multiple of 8 (tiles staged with plain loads); Q = 16
 SHAPES = [(2, 300, 5, 64, 128), (1, 512, 3, 64, 128), (3, 100, 4, 8, 16),
-          (2, 40, 7, 64, 128)]
+          (2, 40, 7, 64, 128), (2, 200, 3, 64, 40), (2, 96, 3, 24, 16),
+          (1, 130, 2, 13, 20), (3, 16, 5, 64, 128)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -159,6 +166,111 @@ def test_kernel_carries_a_slowly_decaying_state(cuda, dtype):
     want = h_short * per_chunk[:, -1, :, None, None] + h_last
     herr = float((state - want).abs().max())
     assert herr <= kd.plain_tol(want, torch.float32), herr
+
+
+def cancelling_inputs(case, b, S, H, P, N):
+    """float32 inputs, exact in bf16, whose y (``"keys"``) or carried
+    state's term in y (``"state"``) is a sum of terms up to 2^10 times its
+    size, built so that rounding a float32 operand of the kernel's
+    products to fewer bf16 parts errs the same way in every term.
+
+    ``"keys"``: every score ``C[q] . B[k]`` is 1; x is +1 and -1 on
+    alternate tokens and dt is 2^-4 (1 + 3 2^-10) and 2^-4 (1 + 5 2^-10),
+    so a pair of keys cancels in y and in the state while bf16(dt) rounds
+    down on one and up on the other.  A is -1e-6 on even heads (G's
+    rounding the same along a row) and -1e-2 on odd heads (the state's
+    terms decay apart).  ``"state"``: the first two tokens (x = 1) write
+    the state ``2^-4 (1 + B[1, n])`` with ``B[1, n]`` = 3 2^-10 at even n
+    and 5 2^-10 at odd n, which ``C`` = +1, -1 at even, odd n cancels
+    pairwise in every later y; N must be even.  D is 0 in both."""
+    f32 = torch.float32
+    x = torch.zeros((b, S, H, P), dtype=f32)
+    dt = torch.full((b, S, H), 2.0 ** -4)
+    A = torch.where(torch.arange(H) % 2 == 0, -1e-6, -1e-2).to(f32)
+    B = torch.zeros((b, S, N), dtype=f32)
+    C = torch.zeros((b, S, N), dtype=f32)
+    odd_n = torch.arange(N) % 2 == 1
+    if case == "keys":
+        odd = (torch.arange(S) % 2 == 1)[None, :, None]
+        dt = dt * (1 + torch.where(odd, 5.0, 3.0) * 2.0 ** -10)
+        x[:] = torch.where(odd, -1.0, 1.0)[..., None]
+        B[..., 0] = 1
+        C[..., 0] = 1
+    else:
+        x[:, :2] = 1
+        B[:, 0] = 1
+        B[:, 1] = torch.where(odd_n, 5.0, 3.0) * 2.0 ** -10
+        C[:] = torch.where(odd_n, -1.0, 1.0)
+    return x, dt.contiguous(), A, B, C, torch.zeros(H)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["keys", "state"])
+@pytest.mark.parametrize("shape", [(256, 8, 16, 64), (512, 64, 128, 256)],
+                         ids=["small", "model"])
+def test_kernel_holds_cancelling_sums(cuda, shape, case, dtype):
+    """On :func:`cancelling_inputs` y and the state within ``plain_tol``:
+    a bf16 kernel that took one bf16 part of G (``"keys"``) or of the
+    carried state (``"state"``), or two of x' = w x (``"keys"``, the
+    small shape), fails here (``tests/test_torch_ssd_scan.py`` emulates
+    each)."""
+    S, P, N, Q = shape
+    tdt = getattr(torch, dtype)
+    x, dt, A, B, C, D = cancelling_inputs(case, 1, S, 2, P, N)
+    args = [t.to(cuda) for t in (x.to(tdt), dt, A, B.to(tdt), C.to(tdt), D)]
+    y, state = kd.ssd_scan_kernel(*args, chunk=Q)
+    py, pstate = kd.ssd_scan_plain(*args, chunk=Q)
+    err = float((y.float() - py.float()).abs().max())
+    assert err <= kd.plain_tol(py.float(), tdt), err
+    serr = float((state - pstate).abs().max())
+    assert serr <= kd.plain_tol(pstate, torch.float32), serr
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_holds_a_state_spanning_orders_of_magnitude(cuda, dtype):
+    """The slow-decay inputs with x scaled by 10^3 on one head, so the
+    state's entries span several orders of magnitude: y and the state
+    within ``plain_tol`` of the plain version's, the state also head by
+    head against each head's own magnitude."""
+    Q, b, S, H = 256, 2, 768, 4
+    x, dt, A, B, C, D = _slow_inputs(b, S, H, torch.float32, seed=13)
+    x[:, :, 1] *= 1e3
+    tdt = getattr(torch, dtype)
+    args = [t.to(cuda) for t in (x.to(tdt), dt, A, B.to(tdt), C.to(tdt), D)]
+    y, state = kd.ssd_scan_kernel(*args, chunk=Q)
+    py, pstate = kd.ssd_scan_plain(*args, chunk=Q)
+    mags = pstate.abs().amax(dim=(0, 2, 3))
+    assert float(mags.max() / mags.min()) > 1e2, mags
+    err = float((y.float() - py.float()).abs().max())
+    assert err <= kd.plain_tol(py.float(), tdt), err
+    serr = float((state - pstate).abs().max())
+    assert serr <= kd.plain_tol(pstate, torch.float32), serr
+    for i in range(H):
+        herr = float((state[:, i] - pstate[:, i]).abs().max())
+        assert herr <= kd.plain_tol(pstate[:, i], torch.float32), (i, herr)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bare_launch_equals_the_wrapper(cuda, dtype):
+    """``launch`` into buffers made beforehand (as ``chip_smoke.py`` times
+    it) gives the wrapper's y and state bit for bit."""
+    tdt = getattr(torch, dtype)
+    raw = [t.to(cuda) for t in _inputs(2, 512, 3, 64, 128, tdt, seed=17)]
+    want_y, want_state = kd.ssd_scan_kernel(*raw, chunk=256)
+    args = kd.prepare(*raw, 256)
+    y = torch.full_like(want_y, float("nan"))
+    state = torch.full_like(want_state, float("nan"))
+    kd.launch(*args, y, state, 256,
+              stream=torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want_y) and torch.equal(state, want_state)
+
+
+def test_two_blocks_a_sm_at_the_model_shape(cuda):
+    """The bf16 instance at the model's (P, N, Q) = (64, 128, 256) fits two
+    blocks on an SM, with the shared memory a launch there passes."""
+    assert kd.resident_blocks(64, 128, 256, torch.bfloat16, cuda) >= 2
+    assert kd.resident_blocks(64, 128, 256, torch.float32, cuda) >= 1
 
 
 def test_kernel_refuses_a_wide_head(cuda):

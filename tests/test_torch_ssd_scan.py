@@ -26,6 +26,7 @@ from repro_torch.kernels.ssd_scan import ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as kd  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_ref  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
+from test_torch_cuda_ssd import cancelling_inputs  # noqa: E402
 
 ATOL = 5e-4  # tests/test_ssd_kernel.py's
 
@@ -159,6 +160,120 @@ def test_plain_tol_grows_by_a_bf16_step():
         3 * (1e-4 + 2 ** -7))
     # relative all the way down: small states get small tolerances
     assert kd.plain_tol(ref * 1e-3, torch.float32) == pytest.approx(3e-7)
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+# bf16 parts of each float32 operand in the bf16 CUDA kernel's products:
+# the masked, decayed, dt-scaled scores G, the carried state h_in, the
+# state update's weighted x' = w x
+KERNEL_PARTS = {"G": 2, "h_in": 2, "x'": 3}
+
+
+def _emulate_split_kernel(x, dt, A, B, C, D, *, chunk, parts):
+    """The bf16 CUDA kernel's arithmetic in plain float32 torch: x, B and C
+    are bf16 values and enter their products exactly; each float32 operand
+    goes in as ``parts[name]`` bf16 parts, bf16(v), then bf16 of what is
+    left, and so on."""
+    def split(v, name):
+        out = []
+        for _ in range(parts[name]):
+            out.append(_bf16(v))
+            v = v - out[-1]
+        return out
+
+    b, S, H, P = x.shape
+    above = ~torch.ones((chunk, chunk), dtype=torch.bool).tril()
+    h = torch.zeros((b, H, P, B.shape[-1]))
+    ys = []
+    for c0 in range(0, S, chunk):
+        xk, dtk = x[:, c0:c0 + chunk], dt[:, c0:c0 + chunk]
+        Bk, Ck = B[:, c0:c0 + chunk], C[:, c0:c0 + chunk]
+        cums = torch.cumsum(dtk * A, dim=1)  # (b,Q,H)
+        seg = cums[:, :, None, :] - cums[:, None, :, :]  # (b,q,k,H)
+        L = torch.exp(seg.masked_fill(above[None, :, :, None], float("-inf")))
+        G = (Ck @ Bk.transpose(1, 2))[..., None] * L * dtk[:, None]
+        y = sum(torch.einsum("bqkh,bkhp->bqhp", g, xk) for g in split(G, "G"))
+        y = y + sum(torch.einsum("bqn,bhpn->bqhp", Ck, hp)
+                    for hp in split(h, "h_in")) * torch.exp(cums)[..., None]
+        ys.append(y + xk * D[:, None])
+        w = torch.exp(cums[:, -1:] - cums) * dtk  # (b,Q,H)
+        h = h * torch.exp(cums[:, -1])[..., None, None] + sum(
+            torch.einsum("bqn,bqhp->bhpn", Bk, xp)
+            for xp in split(xk * w[..., None], "x'"))
+    return torch.cat(ys, dim=1), h
+
+
+@pytest.mark.parametrize("passes", [1, 2], ids=["one_rounding", "hi_lo"])
+def test_split_operands_and_the_state_tolerance(passes):
+    """Why the kernel multiplies every float32 operand in more than one
+    bf16 pass: one bf16 rounding of G, h_in and x' (2^-9 relative) breaks
+    ``plain_tol`` on the state; the kernel's split (hi and lo of G and
+    h_in, 2^-17; three parts of x') holds it, and y as well at the float32
+    tolerance, on random inputs."""
+    args = _t(_inputs(2, 128, 3, 16, 32, seed=11))
+    x, dt, A, B, C, D = args
+    x, B, C = _bf16(x), _bf16(B), _bf16(C)
+    py, ps = kd.ssd_scan_plain(x, dt, A, B, C, D, chunk=32)
+    parts = KERNEL_PARTS if passes == 2 else dict.fromkeys(KERNEL_PARTS, 1)
+    ey, es = _emulate_split_kernel(x, dt, A, B, C, D, chunk=32, parts=parts)
+    serr = float((es - ps).abs().max())
+    stol = kd.plain_tol(ps, torch.float32)
+    if passes == 1:
+        assert serr > 2 * stol, (serr, stol)
+    else:
+        assert serr <= stol / 4, (serr, stol)
+        yerr = float((ey - py).abs().max())
+        assert yerr <= kd.plain_tol(py, torch.float32), yerr
+
+
+def _split_case(case):
+    """bf16-exact float32 inputs at a small size: the reference kernel
+    tests' recipe (``"random"``, chunk 32) or the card tests'
+    ``cancelling_inputs`` (``"keys"``, ``"state"``, chunk 32)."""
+    if case == "random":
+        x, dt, A, B, C, D = _t(_inputs(2, 128, 3, 16, 32, seed=11))
+        return (_bf16(x), dt, A, _bf16(B), _bf16(C), D), 32
+    return cancelling_inputs(case, 1, 64, 2, 8, 16), 32
+
+
+def _split_errors(case, parts):
+    """The emulated kernel's y (stored in bf16, as the kernel stores it)
+    and state against the plain version's on bf16 inputs, each over its
+    ``plain_tol``."""
+    (x, dt, A, B, C, D), chunk = _split_case(case)
+    bf = torch.bfloat16
+    py, ps = kd.ssd_scan_plain(x.to(bf), dt, A, B.to(bf), C.to(bf), D,
+                               chunk=chunk)
+    ey, es = _emulate_split_kernel(x, dt, A, B, C, D, chunk=chunk,
+                                   parts=parts)
+    yerr = float((ey.to(bf).float() - py.float()).abs().max())
+    serr = float((es - ps).abs().max())
+    return (yerr / kd.plain_tol(py.float(), bf),
+            serr / kd.plain_tol(ps, torch.float32))
+
+
+@pytest.mark.parametrize("operand, parts, case, check", [
+    ("G", 1, "keys", "y"), ("h_in", 1, "state", "y"),
+    ("x'", 1, "random", "state"), ("x'", 2, "keys", "state")],
+    ids=["G_once", "h_in_once", "x_once", "x_twice"])
+def test_fewer_parts_of_one_operand_break_its_check(operand, parts, case,
+                                                    check):
+    """Each float32 operand needs the parts the kernel gives it: with the
+    other two split as the kernel splits them, fewer parts of this one put
+    y (G and h_in reach only y) or the state (x' reaches only the state)
+    over twice ``plain_tol``; the card tests hold the kernel on the same
+    inputs."""
+    yratio, sratio = _split_errors(case, {**KERNEL_PARTS, operand: parts})
+    assert (yratio if check == "y" else sratio) > 2, (yratio, sratio)
+
+
+@pytest.mark.parametrize("case", ["random", "keys", "state"])
+def test_the_kernels_split_holds_y_and_the_state(case):
+    yratio, sratio = _split_errors(case, KERNEL_PARTS)
+    assert yratio <= 1 and sratio <= 1, (yratio, sratio)
 
 
 # ---------------------------------------------------------------------------
