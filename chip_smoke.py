@@ -19,8 +19,9 @@ any failure exits non-zero:
 
 1. build  — compile every kernel of the three paths from ``src/repro_torch/csrc``
    (one nvcc per source, started together); print the card's name and
-   power limit, torch, CUDA and nvcc versions, the pyramid kernels' and
-   the SSD scan's ``ptxas`` lines (registers, stack, spills), the pyramid
+   power limit, torch, CUDA and nvcc versions, the pyramid kernels', the
+   SOP kernel's and the SSD scan's ``ptxas`` lines (registers, stack,
+   spills), the pyramid
    kernels' co-resident block count per dtype and the SSD scan's blocks a
    SM per instance at the Mamba-2 model's (P, N, Q).
 2. pyramids — for every pyramid of the four plans below, the kernel against
@@ -38,15 +39,19 @@ any failure exits non-zero:
    just after against that forward's plan.
 4. sop — the windows of VGG-16 ``CONV1`` (of the VGG image above) and
    ``CONV2`` (of ``relu(CONV1)``) at 224², P = 50,176 each, scaled by one
-   power of two into (-1, 1), through ``online_sop_end`` once per filter
-   (64 per layer, 16 digits), with the launch counts reset just before and
-   checked just after (128, all through the kernel).  Checked: ``sop``
-   times the scale equals the layer's pre-bias convolution; the kernel
-   equals its plain version (``sop`` within 1e-5 relative, cycles and
-   flags equal except at printed near-ties, see ``latch_disagreements``);
-   no flagged row has ``sop >= 0``.  Every filter's launch is timed, and
-   every filter's plain version as it is checked; per-layer END shares are
-   printed beside the paper's Fig. 12.
+   power of two into (-1, 1), through ``online_sop_end`` once per layer
+   with all 64 filters as ``y (64, m)`` (16 digits), with the launch counts
+   reset just before and checked just after (2, one a layer, all through
+   the kernel).  Checked, for every filter's column: ``sop`` times the
+   scale equals the layer's pre-bias convolution; the kernel equals its
+   plain version (``sop`` within 1e-5 relative, cycles and flags equal
+   except at printed near-ties, see ``latch_disagreements``); no flagged
+   row has ``sop >= 0``.  Each layer's launch is timed (bare and through
+   the wrapper) and bounded (x read once a layer; the digit products at
+   the int8 rate, ``x * y`` at the float32 rate; ``ops_ms_f32``, every
+   operation at the float32 rate, beside it), every filter's plain version
+   as it is checked, and one single-filter launch at ``CONV2``; per-layer
+   END shares are printed beside the paper's Fig. 12.
 5. lm — Mamba-2-780m (``repro_torch.configs.mamba2_780m``) at full width
    and depth, random weights from a seed, through the port's entry points
    (``launch.steps.make_prefill_step`` / ``make_decode_step``,
@@ -71,11 +76,10 @@ any failure exits non-zero:
    ``launches`` sums the four forwards, ``launches_per_forward`` splits
    it, and every time sums the per-launch medians over the dense pyramids
    of the four plans; for the SOP kernel ``launches_per_layer`` splits
-   the 128 and every time is measured over all 128 launches: the median
-   of a layer's 64 launches timed as one span, or the sum of the 64 plain
-   calls' single timed spans, summed over the two layers; for the SSD
-   kernel ``launches`` is the bf16 prefill's 48 and every time covers its
-   48 layers), then the ``{"ok": true, "device": ...}`` line last.
+   the 2 and every time sums the two layers: the median of a layer's
+   launch, or the sum of its 64 plain calls' single timed spans; for the
+   SSD kernel ``launches`` is the bf16 prefill's 48 and every time covers
+   its 48 layers), then the ``{"ok": true, "device": ...}`` line last.
 
 Weights and inputs are random, made from fixed seeds.  The script imports
 nothing of JAX and nothing of the reference package ``repro``.
@@ -111,11 +115,14 @@ SOP_LEVELS = (0, 1)
 SOP_DIGITS = 16
 # the paper's Fig. 12 END shares for VGG-16, printed beside this run's
 PAPER_VGG_END = "detected 41.08%, undetermined about 2.2%"
+# the single-filter kernel's time a launch at CONV2 before the filter axis
+# (chip_smoke.py on an H100 80GB HBM3 at 700 W: 15.838 ms / 64 launches)
+SOP_F1_BEFORE_MS = 15.838 / 64
 
 # published H100 SXM peaks (dense): HBM bytes/s, float32 outside the
-# tensor cores, bf16 on the tensor cores
+# tensor cores, bf16 and int8 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 
 WARMUP, REPS = 2, 5
 # a device-side spin queued before each timed call, long enough (about 5 ms
@@ -527,7 +534,7 @@ class Smoke:
         return layers
 
     def phase_sop(self) -> dict:
-        """The SOP + END path once (one call per filter of each layer),
+        """The SOP + END path once (one call per layer, all its filters),
         counted; then checked against the convolution and the plain
         version, and timed.  Returns the kernel's entry of the kernels
         line."""
@@ -540,29 +547,31 @@ class Smoke:
         torch.cuda.synchronize()
         build.reset_launch_counts()
         for lay in layers:
-            lay["out"] = [online_sop_end(lay["x"], y, SOP_DIGITS)
-                          for y in lay["ys"]]
+            lay["out"] = online_sop_end(lay["x"], lay["ys"], SOP_DIGITS)
         counts = {k.symbol: k.launches for k in build.KERNELS}
         torch.cuda.synchronize()
-        n_filters = sum(len(lay["ys"]) for lay in layers)
         expect = {k.symbol: 0 for k in build.KERNELS}
-        expect[tos.SOP_END.symbol] = n_filters
+        expect[tos.SOP_END.symbol] = len(layers)
         if counts != expect:
             raise AssertionError(f"sop: launch counts {counts} != {expect}")
         st = dict(max_abs_err=0.0, near_ties=0, ms=0.0, call_ms=0.0,
                   plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
-                  layers=[])
+                  ops_ms_f32=0.0, layers=[])
         for lay in layers:
             row = self.check_sop_layer(lay, tos)
             row.update(self.time_sop_layer(lay, tos))
             for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bytes_ms",
-                      "ops_ms"):
+                      "ops_ms", "ops_ms_f32"):
                 st[k] += row[k]
             st["max_abs_err"] = max(st["max_abs_err"], row["max_abs_err"])
             st["near_ties"] += row["near_ties"]
             st["layers"].append(row)
             print("sop " + json.dumps(row), flush=True)
         self.sop_rows = st["layers"]
+        f1 = next(r["f1_ms"] for r in st["layers"] if "f1_ms" in r)
+        print(f"sop CONV2 one filter, one launch: {f1:.4f} ms (the"
+              f" single-filter kernel before the filter axis:"
+              f" {SOP_F1_BEFORE_MS:.4f} ms)", flush=True)
         return dict(
             name=tos.SOP_END.symbol, route="cuda", source=tos.SOP_END.source,
             replaces=tos.SOP_END.replaces,
@@ -573,6 +582,8 @@ class Smoke:
             plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
             bound_by="bytes" if st["bytes_ms"] >= st["ops_ms"]
             else "operations",
+            bytes_ms=st["bytes_ms"], ops_ms=st["ops_ms"],
+            ops_ms_f32=st["ops_ms_f32"], conv2_one_filter_ms=f1,
             # no single PyTorch call computes termination cycles
             library_ms=None, near_ties=st["near_ties"],
         )
@@ -584,9 +595,7 @@ class Smoke:
         untimed warm-up call)."""
         torch = self.torch
         name, x = lay["name"], lay["x"]
-        sop = torch.stack([o[0] for o in lay["out"]], dim=1)  # (P, Cout)
-        cyc = torch.stack([o[1] for o in lay["out"]], dim=1)
-        det = torch.stack([o[2] for o in lay["out"]], dim=1)
+        sop, cyc, det = lay["out"]  # (P, Cout) each
         ref = lay["ref"]
         err = float((sop * 2.0 ** lay["e"] - ref).abs().max())
         tol = 1e-4 * max(1.0, float(ref.abs().max()))
@@ -597,7 +606,8 @@ class Smoke:
             raise AssertionError(f"sop {name}: a detected row has sop >= 0")
         max_err, ties, plain_ms = 0.0, 0, 0.0
         tos.online_sop_end_plain(x, lay["ys"][0], SOP_DIGITS)
-        for f, (y, got) in enumerate(zip(lay["ys"], lay["out"])):
+        for f, y in enumerate(lay["ys"]):
+            got = (sop[:, f], cyc[:, f], det[:, f])
             torch.cuda._sleep(SPIN_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
@@ -624,7 +634,8 @@ class Smoke:
             ties += len(rows)
         neg = sop < 0
         return dict(
-            layer=name, launches=len(lay["out"]), P=x.shape[0], m=x.shape[1],
+            layer=name, launches=1, filters=len(lay["ys"]), P=x.shape[0],
+            m=x.shape[1],
             scale_exp=lay["e"], conv_max_abs_err=err, conv_tol=tol,
             max_abs_err=max_err, near_ties=ties, plain_ms=plain_ms,
             negative_share=float(neg.float().mean()),
@@ -636,43 +647,52 @@ class Smoke:
         )
 
     def time_sop_layer(self, lay, tos) -> dict:
-        """The layer's 64 launches, timed as one span (median of the
-        spans): the bare kernel into buffers made beforehand, behind a
-        spin, and the wrapper call as the path makes it (no spin); and the
-        bound of the 64."""
+        """The layer's one launch: the bare kernel into buffers made
+        beforehand, behind a spin, and the wrapper call as the path makes
+        it (no spin), medians of their spans; at ``CONV2`` also one
+        single-filter launch; and the bound."""
         from repro_torch.kernels.online_sop import online_sop_end
 
         torch = self.torch
         x, ys = lay["x"], lay["ys"]
-        P, m = x.shape
-        sop = torch.empty(P, dtype=torch.float32, device=self.device)
-        cyc = torch.empty(P, dtype=torch.int32, device=self.device)
-        det = torch.empty(P, dtype=torch.bool, device=self.device)
+        (P, m), F = x.shape, len(ys)
         stream = torch.cuda.current_stream().cuda_stream
 
-        def bare():
-            for y in ys:
-                tos.launch(x, y, sop, cyc, det, SOP_DIGITS, stream=stream)
+        def buffers(n):
+            return [torch.empty((P, n), dtype=dt, device=self.device)
+                    for dt in (torch.float32, torch.int32, torch.bool)]
 
-        ms = _median_ms(bare, torch)
-        got = lay["out"][-1]
-        if not (torch.equal(sop, got[0]) and torch.equal(cyc, got[1])
-                and torch.equal(det, got[2])):
+        w, out = tos.prepare_weights(ys), buffers(F)
+        ms = _median_ms(lambda: tos.launch(x, w, *out, SOP_DIGITS,
+                                           stream=stream), torch)
+        if not all(torch.equal(a, b) for a, b in zip(out, lay["out"])):
             raise AssertionError(f"sop {lay['name']}: the bare launch"
                                  " disagrees with the wrapper's")
-        call_ms = _median_ms(
-            lambda: [online_sop_end(x, y, SOP_DIGITS) for y in ys], torch,
-            spin=False)
-        # per launch, each input read once, each output written once; a
-        # d*y multiply-add per element and digit plus the x*y one
-        nbytes = len(ys) * ((x.numel() + m) * 4 + P * (4 + 4 + 1))
-        ops = len(ys) * 2 * P * m * (SOP_DIGITS + 1)
+        call_ms = _median_ms(lambda: online_sop_end(x, ys, SOP_DIGITS),
+                             torch, spin=False)
+        timed = {}
+        if lay["name"] == "CONV2":
+            w1, out1 = tos.prepare_weights(ys[:1].contiguous()), buffers(1)
+            timed["f1_ms"] = _median_ms(
+                lambda: tos.launch(x, w1, *out1, SOP_DIGITS, stream=stream),
+                torch)
+        # the least work: x read once, Y once, the three (P, F) outputs
+        # written once; a digit product per element, digit and filter at
+        # the int8 rate, and the x * y multiply-add at the float32 rate
+        nbytes = (x.numel() + F * m) * 4 + P * F * (4 + 4 + 1)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / PEAK_FLOPS["float32"] * 1e3
-        return dict(ms=ms, call_ms=call_ms,
-                    bytes_ms=bytes_ms, ops_ms=ops_ms,
-                    bound_ms=max(bytes_ms, ops_ms),
-                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        ops_ms = (2 * P * m * F * SOP_DIGITS / PEAK_FLOPS["int8"]
+                  + 2 * P * m * F / PEAK_FLOPS["float32"]) * 1e3
+        # every operation at the float32 rate, as the bound counted them
+        # when each filter was its own launch
+        ops_ms_f32 = (2 * P * m * F * (SOP_DIGITS + 1)
+                      / PEAK_FLOPS["float32"] * 1e3)
+        bound_ms = max(bytes_ms, ops_ms)
+        return dict(ms=ms, call_ms=call_ms, **timed,
+                    bytes_ms=bytes_ms, ops_ms=ops_ms, ops_ms_f32=ops_ms_f32,
+                    bound_ms=bound_ms,
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    times_bound=ms / bound_ms)
 
 
 # ---- phase lm -------------------------------------------------------------
@@ -1127,9 +1147,9 @@ def _forward_ms(run, torch) -> float:
 
 
 def print_build_report(reports, fc, device) -> None:
-    """The pyramid kernels' and the SSD scan's ptxas lines (entry,
-    registers, stack and spills) from this run's build; each pyramid
-    kernel's co-resident block count per dtype (the grid of its
+    """The pyramid kernels', the SOP kernel's and the SSD scan's ptxas
+    lines (entry, registers, stack and spills) from this run's build; each
+    pyramid kernel's co-resident block count per dtype (the grid of its
     cooperative launch) and the SSD scan's blocks a SM per instance at the
     Mamba-2 model's head width, state and chunk."""
     import torch
@@ -1137,7 +1157,7 @@ def print_build_report(reports, fc, device) -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd_scan import ssd_scan as kd
 
-    for lib in ("fused_pyramid", "ssd_scan"):
+    for lib in ("fused_pyramid", "online_sop", "ssd_scan"):
         for line in reports.get(lib, "").splitlines():
             if any(w in line for w in ("Compiling entry", "registers",
                                        "spill")):

@@ -147,16 +147,6 @@ __device__ __forceinline__ float ldcg(const __nv_bfloat16* p) {
   return __bfloat162float(__ldcg(p));
 }
 
-// 4-byte copy through L1, for data no block writes during the launch (the
-// input and the weights); zero-fills when !valid
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }

@@ -1,7 +1,9 @@
 // Warp-level building blocks for Hopper (sm_90a) kernels of the port:
-// 16-byte cp.async staging, ldmatrix fragment loads and the bf16
-// mma.sync.m16n8k16 tensor-core product with float32 accumulation.
-// Included by fused_pyramid.cu (kernels A and B) and ssd_scan.cu (kernel D).
+// 16- and 4-byte cp.async staging, ldmatrix fragment loads, the bf16
+// mma.sync.m16n8k16 tensor-core product with float32 accumulation and the
+// int8 mma.sync.m16n8k32 product with int32 accumulation.
+// Included by fused_pyramid.cu (kernels A and B), online_sop.cu (kernel C)
+// and ssd_scan.cu (kernel D).
 
 #pragma once
 
@@ -19,6 +21,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4-byte global -> shared copy through L1, for sources only 4-byte aligned
+// that no block writes during the launch; zero-fills when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -51,6 +62,18 @@ __device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c (16x8 s32) += a (16x32 s8, row) * b (32x8 s8, col); exact.  The
+// fragments have the bf16 product's register layout with bytes in place of
+// halves, so ldsm_x4 loads both operands.
+__device__ __forceinline__ void mma_s8(int* c, const unsigned* a,
+                                       const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 

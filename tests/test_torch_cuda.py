@@ -251,23 +251,24 @@ def test_traced_run_times_launches_with_cuda_events(cuda):
     assert col.events[-1].name == "run_network"
 
 
-# (P, m, n_digits): the VGG-16 CONV1 and CONV2 window widths; both row
-# mappings (one row per thread up to m = 64, one per warp above) with one
-# to three chunks of 16 cycles; ragged P and m; an m whose y needs more than
-# 48 KB of shared memory
+# (P, m, n_digits): the VGG-16 CONV1 and CONV2 window widths; one to three
+# chunks of 16 cycles; ragged P; odd m (x staged 4 bytes at a time); an m
+# whose limbs stay resident (363, 6 k-tiles) and one they stream through
+# (20000, 313 k-tiles)
 SOP_CASES = [(1001, 27, 16), (4096, 576, 16), (999, 64, 24), (513, 65, 33),
              (777, 363, 40), (64, 20000, 12)]
 
 
-@pytest.mark.parametrize("P,m,n_digits", SOP_CASES)
-def test_sop_end_kernel_matches_plain(cuda, P, m, n_digits):
-    gen = torch.Generator().manual_seed(P + m)
+def _sop_operands(P, m, n_filters, cuda):
+    gen = torch.Generator().manual_seed(P + m + (n_filters or 0))
     x = (torch.rand((P, m), generator=gen) * 1.8 - 0.9).to(cuda)
-    y = ((torch.rand(m, generator=gen) * 1.8 - 0.9) / m).to(cuda)
-    before = tos.SOP_END.launches
-    got = tos.online_sop_end_kernel(x, y, n_digits)
-    torch.cuda.synchronize()
-    assert tos.SOP_END.launches == before + 1
+    shape = (m,) if n_filters is None else (n_filters, m)
+    y = ((torch.rand(shape, generator=gen) * 1.8 - 0.9) / m).to(cuda)
+    return x, y
+
+
+def _check_sop_filter(x, y, n_digits, got):
+    """One filter's kernel results against the plain version."""
     plain = tos.online_sop_end_plain(x, y, n_digits)
     # both sum up to m float32 products, in different orders
     err = float((got[0] - plain[0]).abs().max())
@@ -275,4 +276,70 @@ def test_sop_end_kernel_matches_plain(cuda, P, m, n_digits):
     rows, margins, tie = tos.latch_disagreements(x, y, n_digits, got, plain)
     assert bool((margins <= tie).all()), (rows, margins, tie)
     assert not bool((got[2] & (got[0] >= 0)).any())
+
+
+@pytest.mark.parametrize("P,m,n_digits", SOP_CASES)
+def test_sop_end_kernel_matches_plain(cuda, P, m, n_digits):
+    x, y = _sop_operands(P, m, None, cuda)
+    before = tos.SOP_END.launches
+    got = tos.online_sop_end_kernel(x, y, n_digits)
+    torch.cuda.synchronize()
+    assert tos.SOP_END.launches == before + 1
+    _check_sop_filter(x, y, n_digits, got)
     assert 0 < int(got[2].sum()) < P
+
+
+# (P, m, F, n_digits): 3, 64 and 65 filters (one and two filter blocks, a
+# block of one filter) at the CONV1 and CONV2 widths with ragged P; 700
+# and 20000 elements, whose limbs stream through in k-tiles
+SOP_BATCHED = [(1001, 27, 64, 16), (999, 27, 3, 24), (517, 27, 65, 16),
+               (4099, 576, 64, 16), (513, 576, 3, 33), (777, 576, 65, 16),
+               (333, 700, 5, 20), (40, 20000, 3, 12)]
+
+
+@pytest.mark.parametrize("P,m,n_filters,n_digits", SOP_BATCHED)
+def test_sop_end_batched_matches_plain(cuda, P, m, n_filters, n_digits):
+    """One launch for all filters; each column against the plain version."""
+    x, Y = _sop_operands(P, m, n_filters, cuda)
+    before = tos.SOP_END.launches
+    got = tos.online_sop_end_kernel(x, Y, n_digits)
+    torch.cuda.synchronize()
+    assert tos.SOP_END.launches == before + 1
+    assert got[0].shape == got[1].shape == got[2].shape == (P, n_filters)
+    for f in range(n_filters):
+        _check_sop_filter(x, Y[f], n_digits,
+                          tuple(t[:, f] for t in got))
+    assert 0 < int(got[2].sum()) < got[2].numel()
+
+
+@pytest.mark.parametrize("P,m,n_filters,n_digits",
+                         [(1001, 27, 65, 16), (777, 576, 64, 33),
+                          (40, 20000, 3, 12)])
+def test_sop_end_batched_equals_single_calls(cuda, P, m, n_filters,
+                                             n_digits):
+    """Each filter's arithmetic is independent of F and of the block that
+    holds it: a batched call equals F single calls bit for bit."""
+    x, Y = _sop_operands(P, m, n_filters, cuda)
+    got = tos.online_sop_end_kernel(x, Y, n_digits)
+    for f in range(n_filters):
+        one = tos.online_sop_end_kernel(x, Y[f].contiguous(), n_digits)
+        for a, b in zip(got, one):
+            assert torch.equal(a[:, f], b), f
+
+
+def test_sop_end_kernel_contract(cuda):
+    x, Y = _sop_operands(64, 27, 4, cuda)
+    before = tos.SOP_END.launches
+    with pytest.raises(TypeError):
+        tos.online_sop_end_kernel(x, Y.double(), 16)
+    with pytest.raises(ValueError):
+        tos.online_sop_end_kernel(x, Y[:, :26].contiguous(), 16)
+    with pytest.raises(ValueError):
+        tos.online_sop_end_kernel(x, Y[None], 16)
+    with pytest.raises(ValueError):
+        tos.online_sop_end_kernel(x, Y.cpu(), 16)
+    with pytest.raises(ValueError):
+        tos.online_sop_end_kernel(x, Y.t(), 16)
+    assert tos.SOP_END.launches == before
+    sop, cyc, det = tos.online_sop_end_kernel(x[:0], Y, 16)  # P = 0
+    assert sop.shape == (0, 4) and tos.SOP_END.launches == before

@@ -2,8 +2,11 @@
 version) against the reference's Pallas ``online_sop_end`` in interpret mode
 and its ``online_sop_end_ref`` oracle, on the same numpy inputs: sop within
 atol 1e-5 (5e-2 for bf16 inputs), termination cycles and detected flags
-exactly equal.  Also ``conv_windows`` and the whole VGG-16 block-1 slice
-(windows -> SOP + END per filter) against the reference."""
+exactly equal.  A ``(F, m)`` ``y`` against ``jax.vmap`` of both over the
+filters; the kernel's fixed-point limbs of ``y`` and a CPU emulation of its
+integer digit sums and float64 latch.  Also ``conv_windows`` and the whole
+VGG-16 block-1 slice (windows -> SOP + END per filter) against the
+reference."""
 
 import dataclasses
 
@@ -21,6 +24,7 @@ from repro.kernels.online_sop.ref import online_sop_end_ref as j_ref  # noqa: E4
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import executor as tex  # noqa: E402
 from repro_torch.core.cnn_models import VGG_FUSION  # noqa: E402
+from repro_torch.core.online_arith import to_digits  # noqa: E402
 from repro_torch.kernels.online_sop import online_sop as tos  # noqa: E402
 from repro_torch.kernels.online_sop import online_sop_end  # noqa: E402
 from repro_torch.kernels.online_sop.ref import online_sop_end_ref  # noqa: E402
@@ -134,6 +138,163 @@ def test_wrapper_contract():
     sop, cyc, det = tos.online_sop_end_kernel(x, y, 8)  # CPU: plain version
     assert sop.shape == cyc.shape == det.shape == (4,)
     assert tos.SOP_END.launches == before  # the plain version never counts
+
+
+# ---------------------------------------------------------------------------
+# a filter axis on y: the reference's jax.vmap written out
+# ---------------------------------------------------------------------------
+
+
+def _filters(seed, n_filters, m):
+    """``n_filters`` weight vectors drawn like :func:`_operands`' ``y``."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(-0.9, 0.9, (n_filters, m)) / max(1, m // 8)
+            ).astype(np.float32)
+
+
+@pytest.mark.parametrize("n_filters", [1, 3, 8])
+@pytest.mark.parametrize("batch", [(7,), (3, 50)], ids=["b7", "b3x50"])
+@pytest.mark.parametrize("m", [9, 25, 121, 363])
+def test_filter_axis_matches_vmapped_pallas_and_ref(m, batch, n_filters):
+    """``online_sop_end(x, Y (F, m))`` returns ``(..., F)``, column f equal
+    to the reference on filter f: ``jax.vmap`` over ``Y`` with ``in_axes=0,
+    out_axes=-1``, of the Pallas kernel (interpret mode) and of its oracle.
+    Cycles and flags exactly equal; sop within ``SOP_ATOL`` (float32 sums of
+    m products in another order)."""
+    x, _ = _operands(2000 * m + n_filters + len(batch), batch, m)
+    Y = _filters(3000 * m + n_filters, n_filters, m)
+    port = online_sop_end(torch.tensor(x), torch.tensor(Y), 16)
+    assert port[0].shape == batch + (n_filters,)
+    jx, jY = jnp.asarray(x), jnp.asarray(Y)
+    for fn in (j_sop_end, j_ref):
+        ref = jax.vmap(lambda yy, fn=fn: fn(jx, yy, 16), in_axes=0,
+                       out_axes=-1)(jY)
+        _check(port, ref, SOP_ATOL["float32"])
+
+
+def test_filter_axis_contract():
+    x = torch.zeros((4, 9))
+    with pytest.raises(ValueError):
+        tos.online_sop_end_kernel(x, torch.zeros((3, 8)), 8)
+    with pytest.raises(ValueError):
+        tos.online_sop_end_kernel(x, torch.zeros((0, 9)), 8)
+    with pytest.raises(ValueError):
+        tos.online_sop_end_kernel(x, torch.zeros((2, 3, 9)), 8)
+    with pytest.raises(ValueError):
+        tos.online_sop_end_kernel(x, torch.zeros((9, 3)).t(), 8)
+    sop, cyc, det = tos.online_sop_end_kernel(x, torch.zeros((5, 9)), 8)
+    assert sop.shape == cyc.shape == det.shape == (4, 5)
+
+
+def _limb_filters():
+    """Random filters, an all-zero one, one whose max is an exact power of
+    two (both signs), one just below a power of two, and tiny values."""
+    rng = np.random.default_rng(31)
+    y = rng.standard_normal((8, 40)).astype(np.float32) * 0.05
+    y[1] = 0.0
+    y[2, 5] = 0.25
+    y[3, 7] = -2.0
+    y[4] = np.float32(1.0) - np.float32(2.0 ** -24)  # max|y| just below 1
+    y[5] *= np.float32(2.0 ** -130)  # subnormal
+    y[6, ::2] = 0.0
+    return torch.tensor(y)
+
+
+def test_limb_split_is_exact_and_in_range():
+    """q = round(y 2^(31-E)) with |q| <= 2^30 and |y - q 2^(E-31)| <=
+    2^(E-32) (the rounding of one step); four balanced limbs in [-128, 127]
+    whose weighted sum is q exactly (no tolerance: integers)."""
+    y = _limb_filters()
+    q, e = tos.quantise_filters(y)
+    assert q.dtype == torch.int64 and int(q.abs().max()) <= 2 ** 30
+    err = (y.double() - torch.ldexp(q.double(), (e - 31)[:, None])).abs()
+    one = torch.ones(e.shape, dtype=torch.float64)
+    assert bool((err <= torch.ldexp(one, e - 32)[:, None]).all())
+    assert int(e[1]) == 0 and not bool(q[1].any())  # the all-zero filter
+    # max|y| = 2^-2 and 2^1: E = ceil(log2 max) + 1, q reaches 2^30 exactly
+    assert int(e[2]) == -1 and int(q[2].abs().max()) == 2 ** 30
+    assert int(e[3]) == 2 and int(q[3].min()) == -2 ** 30
+    assert int(e[4]) == 1 and int(q[4].max()) == 2 ** 30 - 2 ** 6
+    limbs = tos.split_limbs(q)
+    assert limbs.dtype == torch.int8 and limbs.shape == (4,) + tuple(y.shape)
+    wide = limbs.to(torch.int64)
+    assert int(wide.min()) >= -128 and int(wide.max()) <= 127
+    back = sum(256 ** k * wide[k] for k in range(4))
+    assert torch.equal(back, q)
+    w = tos.prepare_weights(y)
+    assert w.limbs.shape == (4, 64, 64)
+    assert torch.equal(w.limbs[:, :8, :40], limbs)
+    assert not bool(w.limbs[:, 8:].any()) and not bool(w.limbs[:, :, 40:].any())
+    assert torch.equal(w.tail[:8], q.abs().sum(-1).double())
+
+
+def _emulate_kernel(x, y, n_digits):
+    """The CUDA kernel's END latch, emulated on the CPU from the wrapper's
+    limbs: each limb's digit sum is an integer (float64 holds it exactly),
+    the limbs combine into S_j, and the prefix runs chunk by chunk of 16
+    cycles in float64 in the kernel's order: four lanes each sum 4
+    consecutive cycles in order, an inclusive scan of the lanes' sums by
+    offsets 1, 2 gives each lane the sum before it, and the carried prefix
+    is added last.  Returns (cycle, detected), each (P, F)."""
+    F, m = y.shape
+    w = tos.prepare_weights(y)
+    limbs = w.limbs[:, :F, :m].double()
+    n_pad = -(-n_digits // 16) * 16
+    d = to_digits(x, n_pad).double()  # (P, m, n_pad)
+    per_limb = torch.einsum("pmj,lfm->lpfj", d, limbs)
+    assert float(per_limb.abs().max()) <= 128 * 64 * -(-m // 64)
+    s = (per_limb[0] + 256 * per_limb[1] + 65536 * per_limb[2]
+         + 16777216 * per_limb[3])  # (P, F, n_pad), exact
+    tail = w.tail[:F]
+    carry = torch.zeros(s.shape[:2], dtype=torch.float64)
+    cycle = torch.full(s.shape[:2], -1, dtype=torch.int32)
+    for c0 in range(0, n_digits, 16):
+        js = torch.arange(c0, c0 + 16)
+        scale = torch.pow(2.0, -(js + 1).double())  # exact powers of two
+        lp = (s[..., c0:c0 + 16] * scale).unflatten(-1, (4, 4)).clone()
+        for b in range(1, 4):  # each lane's 4 cycles, in order
+            lp[..., b] = lp[..., b] + lp[..., b - 1]
+        inc = lp[..., 3]
+        inc = torch.cat([inc[..., :1], inc[..., 1:] + inc[..., :-1]], -1)
+        inc = torch.cat([inc[..., :2], inc[..., 2:] + inc[..., :-2]], -1)
+        exc = torch.cat([torch.zeros_like(inc[..., :1]), inc[..., :3]], -1)
+        pref = ((exc[..., None] + lp) + carry[..., None, None]).flatten(-2)
+        fire = (pref + tail[:, None] * scale <= 0) & (js < n_digits)
+        first = torch.where(fire.any(-1),
+                            fire.to(torch.uint8).argmax(-1) + c0 + 1, -1)
+        cycle = torch.where((cycle < 0) & (first > 0), first.int(), cycle)
+        carry = pref[..., 15]
+    detected = cycle > 0
+    return torch.where(detected, cycle, n_digits), detected
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_kernel_latch_emulation_matches_plain(level):
+    """The kernel's integer digit sums and float64 latch, emulated from the
+    wrapper's limbs on CONV1 / CONV2 windows of the 32x32 VGG-16 (8 filters,
+    16 and 24 digits), against the plain float32 version: cycles and flags
+    equal except where the plain version's margin lies inside the band
+    ``(m + n_digits) 2^-24 sum|y|`` of ``latch_disagreements`` (the plain
+    version rounds its float32 sums; the emulation's sums are exact up to
+    y's 2^-30 quantisation and float64 rounding)."""
+    tp = tex.init_pyramid_params(VGG32, seed=1, device="cpu")
+    x = torch.tensor(_image(9))
+    if level == 1:
+        conv1 = dataclasses.replace(VGG32, levels=VGG32.levels[:1])
+        x = tex.reference_forward(x, conv1, tp)
+    win, _ = tex.conv_windows(x, VGG32, level)
+    win = torch.tensor(_pow2_scale(win[0].numpy()))
+    w = tp.weights[level]
+    Y = w.permute(3, 2, 0, 1).reshape(w.shape[-1], -1)[:8].contiguous()
+    for n_digits in (16, 24):
+        cyc, det = _emulate_kernel(win, Y, n_digits)
+        assert 0 < int(det.sum()) < det.numel()
+        for f in range(Y.shape[0]):
+            plain = tos.online_sop_end_plain(win, Y[f], n_digits)
+            got = (plain[0], cyc[:, f], det[:, f])
+            rows, margins, tie = tos.latch_disagreements(
+                win, Y[f], n_digits, got, plain)
+            assert bool((margins <= tie).all()), (f, rows, margins, tie)
 
 
 # ---------------------------------------------------------------------------
