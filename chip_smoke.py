@@ -9,7 +9,7 @@ The main path is the paper's contribution, a CNN forward through fused conv
 pyramids: the zoo graph (``repro_torch.net.graph``), the auto-partitioner's
 cuts (``repro_torch.net.partition.auto_partition``) and the plan-driven
 ``repro_torch.net.runner.run_network``, one hand-written CUDA pyramid kernel
-launch per pyramid.  The second path is the paper's other half, the
+launch per pyramid; phase 6 runs it again traced and guarded.  The second path is the paper's other half, the
 digit-serial sum of products with Early Negative Detection
 (``repro_torch.kernels.online_sop.online_sop_end``) on VGG-16's first two
 conv layers.  The third is the Mamba-2 language model's prefill and decode,
@@ -72,7 +72,32 @@ any failure exits non-zero:
    through the kernel against 512 decode steps over the same prompt
    (``ssd_decode_step``, no kernel) within ``_recurrence_tol``; ``serve``
    at bf16 answering 4 requests.
-6. results — one ``{"kernels": [...]}`` line (for the pyramid kernels
+6. ops — phase 3's ResNet-18 f32 and VGG-16 f32 batch-1 forwards observed
+   and guarded (``repro_torch.obs``, ``repro_torch.robust``): each traced
+   three times (per forward a span per launch with a positive CUDA-event
+   time on this card, logits and skip maps as the untraced forward's, the
+   run_network and end_skip_counts events), all in one Chrome trace that
+   must validate
+   (written next to ``--out``, else to a temporary directory) with the
+   drift report printed; each guarded with no fault (no fallback, every
+   launch clean, the kernels' launch counts reset just before and equal to
+   the plan's just after, logits against ``reference_network``); then four
+   faults on ResNet-18, each with a fresh injector — a launch failure on
+   the first pyramid (one ``eager`` event), a poisoned output of the
+   channel-tiled launch (one ``reference`` event), a budget squeeze (the
+   mildest that splits a launch: ``replan`` into >= 2 sub-launches) and a
+   corrupted conv weight with a clean source (one ``heal`` event) — each
+   with its launch counts checked against the rungs, logits against
+   ``reference_network`` and the untouched launches' skip maps against the
+   clean run's; forward latency (``timed_stats_ms``: median of 3 after a
+   warm-up) traced and guarded beside phase 3's untraced forward, every
+   timed guarded forward checked clean and every timed forward's launches
+   counted, with the preflight alone and the sentinel reads of one
+   forward's launch outputs alone; and
+   ``python -m repro_torch.obs.explain --model resnet18 --run --guard
+   --trace FILE`` as a subprocess.  Its launches go on an ``ops launches``
+   line of their own.
+7. results — one ``{"kernels": [...]}`` line (for the pyramid kernels
    ``launches`` sums the four forwards, ``launches_per_forward`` splits
    it, and every time sums the per-launch medians over the dense pyramids
    of the four plans; for the SOP kernel ``launches_per_layer`` splits
@@ -90,9 +115,11 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -482,7 +509,7 @@ class Smoke:
         if not err <= tol:
             raise AssertionError(f"{run['key']}: logits max abs err {err}"
                                  f" > tol {tol}")
-        t = _forward_ms(run, torch)
+        t = _forward_ms(run)
         rows = [r for st in self.stats.values() for r in st["rows"]
                 if r["run"] == run["key"]]
         run["summary"] = dict(
@@ -1133,17 +1160,413 @@ class Lm:
         )
 
 
-def _forward_ms(run, torch) -> float:
-    """Median host time of a whole forward, ended by a synchronize."""
-    from repro_torch.net.runner import run_network
+# ---- phase ops ------------------------------------------------------------
 
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        run_network(run["x"], run["prepared"], plan=run["plan"])
+# the phase 3 forwards the ops phase runs traced and guarded; the faults
+# are injected into the first
+OPS_RUNS = ("resnet18/float32/b1", "vgg16/float32/b1")
+OPS_REPS = 3
+
+
+class Ops:
+    """The CNN forward observed and guarded (``repro_torch.obs``,
+    ``repro_torch.robust``) on phase 3's plans, params and images."""
+
+    def __init__(self, smoke, out_dir: Path):
+        self.torch = smoke.torch
+        self.out_dir = out_dir
+        out_dir.mkdir(parents=True, exist_ok=True)
+        self.card = self.torch.cuda.get_device_name(0)
+        self.runs = [r for r in smoke.runs if r["key"] in OPS_RUNS]
+        self.summary = {}
+
+    def _counts(self):
+        from repro_torch.kernels import build
+
+        return {k.symbol: k.launches for k in build.KERNELS}
+
+    @staticmethod
+    def _kernel(pyr) -> str:
+        from repro_torch.kernels.fused_conv import fused_conv as fc
+
+        return (fc.PYRAMID_KTILED if pyr.launch.c_tiles > 1
+                else fc.PYRAMID).symbol
+
+    def _plan_counts(self, plan):
+        want = {k: 0 for k in self._counts()}
+        for pyr in plan.pyramids:
+            want[self._kernel(pyr)] += 1
+        return want
+
+    def _check_logits(self, run, logits, ref, what) -> float:
+        err = float((logits.float() - ref).abs().max())
+        tol = _tol(ref, "float32")
+        if not err <= tol:
+            raise AssertionError(f"ops {run['key']} {what}: logits max abs"
+                                 f" err {err} > tol {tol}")
+        return err
+
+    def traced(self, run) -> dict:
+        """``OPS_REPS`` traced forwards in one collector: per forward a
+        span per launch with a positive CUDA-event time on this card,
+        logits and skip maps as the untraced forward's, one run_network
+        event, end_skip_counts equal to the skip maps."""
+        from repro_torch.net.runner import run_network
+        from repro_torch.obs import tracing
+
+        torch, plan = self.torch, run["plan"]
+        err = 0.0
+        with tracing() as col:
+            for _ in range(OPS_REPS):
+                logits, skips = run_network(run["x"], run["prepared"],
+                                            plan=plan)
+                err = max(err, self._check_logits(
+                    run, logits, run["logits"].float(), "traced vs untraced"))
+                for name, skip in skips.items():
+                    if not torch.equal(skip, run["skips"][name]):
+                        raise AssertionError(f"ops {run['key']}: traced skip"
+                                             f" map of {name} differs")
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+        names = [s.name for s in col.spans]
+        if names != [p.name for p in plan.pyramids] * OPS_REPS:
+            raise AssertionError(f"ops {run['key']}: spans {names}")
+        if not all(s.duration_ms > 0 and s.device == self.card
+                   for s in col.spans):
+            raise AssertionError(f"ops {run['key']}: a span without a"
+                                 " positive time on this card")
+        if [e.name for e in col.events].count("run_network") != OPS_REPS:
+            raise AssertionError(f"ops {run['key']}: not one run_network"
+                                 " event a forward")
+        counted = [e.args for e in col.events if e.name == "end_skip_counts"]
+        if len(counted) != OPS_REPS * plan.n_launches():
+            raise AssertionError(f"ops {run['key']}: {len(counted)}"
+                                 " end_skip_counts events")
+        for args in counted:
+            skip = run["skips"][args["launch"]]
+            if (args["per_level"] != skip.sum(dim=(0, 1, 2)).tolist()
+                    or args["cells"] != skip[..., 0].numel()):
+                raise AssertionError(f"ops {run['key']}: end_skip_counts of"
+                                     f" {args['launch']} != its skip map")
+        run["ops_collector"] = col
+        return dict(spans=len(col.spans), logits_max_abs_err=err,
+                    span_ms_per_forward=sum(
+                        s.duration_ms for s in col.spans) / OPS_REPS)
+
+    def chrome_trace(self) -> dict:
+        """Both traced forwards in one Chrome trace, validated and written;
+        the drift report printed."""
+        from repro_torch.obs import TraceCollector
+        from repro_torch.obs.report import (
+            drift_report,
+            drift_rows_from_spans,
+            format_report,
+        )
+        from repro_torch.obs.timeline import chrome_trace, write_chrome_trace
+
+        col = TraceCollector()
+        launches = []
+        for run in self.runs:
+            col.spans += run["ops_collector"].spans
+            col.events += run["ops_collector"].events
+            launches += [(f"{run['key']}/{p.name}", p.launch)
+                         for p in run["plan"].pyramids]
+        trace = chrome_trace(col, launches=launches)
+        path = self.out_dir / "chip_smoke_trace.json"
+        write_chrome_trace(str(path), trace)  # validates, raises if invalid
+        print(f"ops chrome trace: {len(trace['traceEvents'])} events,"
+              " valid", flush=True)
+        rep = drift_report(drift_rows_from_spans(col.spans))
+        format_report(rep, lambda line: print("ops drift " + line),
+                      measured_on=self.card)
+        return dict(events=len(trace["traceEvents"]),
+                    median_ratio=rep["median_ratio"],
+                    flagged=rep["flagged"])
+
+    def guarded(self, run, *, faults=None, params=None):
+        """One guarded forward with the launch counts reset just before and
+        read just after; ``faults(injector)`` arms a fresh injector.
+        Returns (logits, skips, report, counts)."""
+        from repro_torch.kernels import build
+        from repro_torch.net.runner import run_network
+        from repro_torch.robust import GuardConfig, guarding, inject
+
+        params = run["prepared"] if params is None else params
+        self.torch.cuda.synchronize()
+        build.reset_launch_counts()
+        with guarding(GuardConfig(), source_params=run["params"]) as guard:
+            with inject(seed=0) as inj:
+                if faults is not None:
+                    faults(inj)
+                logits, skips = run_network(run["x"], params,
+                                            plan=run["plan"])
+        self.torch.cuda.synchronize()
+        return logits, skips, guard.last_report, self._counts()
+
+    def clean(self, run) -> dict:
+        """A guarded forward with no fault: every launch clean, no event,
+        the kernels launched as the plan says; logits against the port's
+        reference_network on the card."""
+        from repro_torch.net.runner import reference_network
+
+        logits, skips, rep, counts = self.guarded(run)
+        if rep.events or rep.clean_launches != rep.launches:
+            raise AssertionError(f"ops {run['key']}: clean guarded run"
+                                 f" reported {rep.summary()}")
+        want = self._plan_counts(run["plan"])
+        if counts != want:
+            raise AssertionError(f"ops {run['key']}: guarded launch counts"
+                                 f" {counts} != its plan's {want}")
+        run["ops_ref"] = reference_network(run["x"], run["graph"],
+                                           run["params"])
+        run["ops_skips"] = skips
+        err = self._check_logits(run, logits, run["ops_ref"], "guarded")
+        return dict(launches=counts, clean_launches=rep.clean_launches,
+                    logits_max_abs_err=err)
+
+    def fault(self, run, name, arm, *, rung, params=None) -> dict:
+        """One injected fault: exactly one event, of ``rung`` (replan:
+        replan events only, one of them into >= 2 sub-launches), logits
+        within tolerance of reference_network, the skip maps of the
+        untouched launches equal the clean run's, and the kernel launches
+        the rungs imply (an eager launch none, a replanned one its
+        sub-launches, every other launch one), which the report's clean
+        launches, sub-launches and quarantined launches add up to."""
+        from repro_torch.net.partition import replan_pyramid
+
+        plan = run["plan"]
+        logits, skips, rep, counts = self.guarded(run, faults=arm,
+                                                  params=params)
+        rungs = [e.rung for e in rep.events]
+        if not (set(rungs) == {"replan"} and any(
+                len(e.detail["sub_launches"]) >= 2 for e in rep.events)
+                if rung == "replan" else rungs == [rung]):
+            raise AssertionError(f"ops {name}: rungs {rungs}, expected"
+                                 f" {rung!r}: {rep.summary()}")
+        want = self._plan_counts(plan)
+        subs = 0
+        for e in rep.events:
+            pyr = next((p for p in plan.pyramids if p.name == e.launch),
+                       None)
+            if e.rung == "eager":
+                want[self._kernel(pyr)] -= 1
+            elif e.rung == "replan":
+                want[self._kernel(pyr)] -= 1
+                for sp in replan_pyramid(
+                        run["graph"], pyr, vmem_budget=e.detail["budget"],
+                        batch=run["batch"], compute_dtype=run["dtype"]):
+                    want[self._kernel(sp)] += 1
+                    subs += 1
+        if counts != want:
+            raise AssertionError(f"ops {name}: launch counts {counts} !="
+                                 f" {want}")
+        if sum(counts.values()) != rep.clean_launches + subs + sum(
+                r == "reference" for r in rungs):
+            raise AssertionError(f"ops {name}: {sum(counts.values())}"
+                                 " kernel launches, not the clean ones plus"
+                                 " the sub-launches")
+        err = self._check_logits(run, logits, run["ops_ref"], name)
+        touched = {e.launch for e in rep.events}
+        for key, skip in skips.items():
+            if key not in touched and not self.torch.equal(
+                    skip, run["ops_skips"][key]):
+                raise AssertionError(f"ops {name}: skip map of untouched"
+                                     f" launch {key} differs")
+        row = dict(rungs=rungs, launches=counts, sub_launches=subs,
+                   clean_launches=rep.clean_launches,
+                   logits_max_abs_err=err)
+        print(f"ops fault {name}: " + json.dumps(row), flush=True)
+        return row
+
+    @staticmethod
+    def _squeeze(run) -> float:
+        """The mildest budget factor that makes the replan rung split a
+        launch in two or more: budgets midway between the plan's distinct
+        working sets, largest first (the reference chaos suite's rule,
+        repeated until a replan splits)."""
+        from repro_torch.net.partition import replan_pyramid
+        from repro_torch.robust import BudgetError
+
+        plan = run["plan"]
+        sizes = sorted({p.launch.vmem_bytes() for p in plan.pyramids},
+                       reverse=True)
+        for hi, lo in zip(sizes, sizes[1:] + [0]):
+            budget = (hi + lo) // 2
+            try:
+                splits = [len(replan_pyramid(
+                    run["graph"], p, vmem_budget=budget, batch=run["batch"],
+                    compute_dtype=run["dtype"]))
+                    for p in plan.pyramids if p.launch.vmem_bytes() > budget]
+            except BudgetError:
+                continue
+            if max(splits) >= 2:
+                return budget / plan.vmem_budget
+        raise AssertionError(f"ops {run['key']}: no budget squeeze splits a"
+                             " launch")
+
+    def faults(self, run) -> dict:
+        """The four fault classes on one forward, each with a fresh
+        injector."""
+        from repro_torch.robust import corrupt_params
+
+        plan = run["plan"]
+        first = plan.pyramids[0].name
+        tiled = next(p.name for p in plan.pyramids if p.launch.c_tiles > 1)
+        squeeze = self._squeeze(run)
+        conv = plan.graph.nodes[1].name
+        return {
+            "launch_failure": self.fault(
+                run, "launch_failure",
+                lambda inj: inj.raise_at("run", launch=first),
+                rung="eager"),
+            "poisoned_output": self.fault(
+                run, "poisoned_output",
+                lambda inj: inj.poison_output(launch=tiled), rung="reference"),
+            "budget_squeeze": self.fault(
+                run, "budget_squeeze",
+                lambda inj: inj.squeeze_budget(squeeze), rung="replan"),
+            "corrupt_params": self.fault(
+                run, "corrupt_params", None, rung="heal",
+                params=corrupt_params(run["prepared"], conv, seed=3)),
+        }
+
+    def latency(self, run) -> dict:
+        """Forward latency traced and guarded on phase 3's timer
+        (``timed_stats_ms``: median of ``OPS_REPS`` after a warm-up, host
+        clock ended by a synchronize) beside phase 3's untraced forward;
+        every timed guarded forward checked clean and every timed forward's
+        kernel launches counted.  Then the preflight alone, and the
+        sentinel reads of one forward's real launch outputs alone: all of
+        them, and each output (its elements, its read's ms) by itself."""
+        from repro_torch.core.executor import full_fp32
+        from repro_torch.kernels import build
+        from repro_torch.net.runner import _forward, run_network
+        from repro_torch.obs import tracing
+        from repro_torch.obs.stats import timed_stats_ms
+        from repro_torch.robust import GuardConfig, guarding, preflight
+        from repro_torch.robust.guard import sentinel_stats, sentinel_trips
+
+        plan, cfg = run["plan"], GuardConfig()
+
+        def p50_ms(fn):
+            return timed_stats_ms(fn, reps=OPS_REPS)["p50_ms"]
+
+        def counted_ms(fn, what):
+            self.torch.cuda.synchronize()
+            build.reset_launch_counts()
+            ms = p50_ms(fn)
+            want = {k: v * (OPS_REPS + 1)  # the warm-up and the timed calls
+                    for k, v in self._plan_counts(plan).items()}
+            if self._counts() != want:
+                raise AssertionError(f"ops {run['key']} {what} latency:"
+                                     f" launch counts {self._counts()} !="
+                                     f" {want}")
+            return ms
+
+        def traced():
+            with tracing():
+                run_network(run["x"], run["prepared"], plan=plan)
+
+        def guarded():
+            with guarding(cfg, source_params=run["params"]) as guard:
+                run_network(run["x"], run["prepared"], plan=plan)
+            rep = guard.last_report
+            if rep.events or rep.clean_launches != rep.launches:
+                raise AssertionError(f"ops {run['key']}: timed guarded run"
+                                     f" reported {rep.summary()}")
+
+        outs = {}
+
+        def keep(pyr, call, x_in):
+            y, skip = call()
+            outs[pyr.name] = y
+            return y, skip
+
+        with full_fp32():
+            _forward(run["x"], run["prepared"], plan=plan, end_skip=True,
+                     cdt=run["dtype"], launch_wrapper=keep)
+
+        def sentinel(y):
+            return lambda: sentinel_trips(sentinel_stats(y),
+                                          cfg.magnitude_limit)
+
+        def sentinels():
+            for y in outs.values():
+                sentinel(y)()
+
+        row = {
+            "untraced_ms": run["summary"]["forward_ms"],
+            "traced_ms": counted_ms(traced, "traced"),
+            "guarded_ms": counted_ms(guarded, "guarded"),
+            "preflight_ms": p50_ms(lambda: preflight(
+                run["x"], run["prepared"], plan=plan)),
+            "sentinel_ms_per_forward": p50_ms(sentinels),
+            "sentinel_ms_by_launch": {
+                name: [y.numel(), p50_ms(sentinel(y))]
+                for name, y in outs.items()},
+            "launches": plan.n_launches(),
+        }
+        row["sentinel_ms_per_launch"] = (
+            row["sentinel_ms_per_forward"] / row["launches"])
+        row["guarded_extra_ms_per_launch"] = (
+            row["guarded_ms"] - row["untraced_ms"]) / row["launches"]
+        return row
+
+    def explain(self) -> dict:
+        """``python -m repro_torch.obs.explain --model resnet18 --run
+        --guard --trace FILE`` as a subprocess on the card."""
+        from repro_torch.obs.timeline import validate_chrome_trace
+
+        path = self.out_dir / "explain_trace.json"
+        self.torch.cuda.empty_cache()  # the subprocess shares the card
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.explain", "--model",
+             "resnet18", "--run", "--guard", "--trace", str(path)],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
+        )
+        for line in out.stdout.splitlines():
+            print("ops explain| " + line, flush=True)
+        if out.returncode != 0:
+            raise AssertionError(f"explain exited {out.returncode}:"
+                                 f" {out.stderr[-4000:]}")
+        problems = validate_chrome_trace(json.loads(path.read_text()))
+        if problems or "no fallbacks" not in out.stdout:
+            raise AssertionError(f"explain: {problems or 'fallbacks taken'}")
+        return dict(rc=out.returncode, s=time.perf_counter() - t0)
+
+    def run(self) -> dict:
+        for run in self.runs:
+            row = self.summary.setdefault(run["key"], {})
+            row["traced"] = self.traced(run)
+        self.summary["chrome_trace"] = self.chrome_trace()
+        for run in self.runs:
+            self.summary[run["key"]]["guarded"] = self.clean(run)
+        self.summary["faults"] = self.faults(self.runs[0])
+        for run in self.runs:
+            self.summary[run["key"]]["latency"] = self.latency(run)
+        self.summary["explain"] = self.explain()
+        launches = {f"{r['key']}/guarded": self.summary[r["key"]]["guarded"]
+                    ["launches"] for r in self.runs}
+        launches.update({f"{self.runs[0]['key']}/{k}": v["launches"]
+                         for k, v in self.summary["faults"].items()})
+        print("ops launches " + json.dumps(launches), flush=True)
+        for run in self.runs:
+            print(f"ops {run['key']} " + json.dumps(
+                self.summary[run["key"]]), flush=True)
+        return self.summary
+
+
+def _forward_ms(run) -> float:
+    """Median host time of a whole forward after a warm-up, each ended by
+    a synchronize (``timed_stats_ms``, the ops phase's timer too)."""
+    from repro_torch.net.runner import run_network
+    from repro_torch.obs.stats import timed_stats_ms
+
+    return timed_stats_ms(
+        lambda: run_network(run["x"], run["prepared"], plan=run["plan"]),
+        reps=OPS_REPS,
+    )["p50_ms"]
 
 
 def print_build_report(reports, fc, device) -> None:
@@ -1222,6 +1645,9 @@ def main(argv=None) -> int:
         sop = smoke.phase_sop()
         lm = Lm(torch, device)
         ssd = lm.run()
+        with tempfile.TemporaryDirectory() as tmp:
+            ops = Ops(smoke, Path(tmp) if args.out is None
+                      else args.out.parent).run()
         kernels = []
         for k in fc.KERNELS:
             st = smoke.stats[k.symbol]
@@ -1247,6 +1673,7 @@ def main(argv=None) -> int:
                 end_to_end=[r["summary"] for r in smoke.runs],
                 sop=smoke.sop_rows,
                 lm=lm.summary,
+                ops=ops,
                 seconds=time.perf_counter() - t0,
             ), indent=1))
         print(json.dumps({"kernels": kernels}), flush=True)

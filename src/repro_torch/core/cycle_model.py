@@ -1,9 +1,8 @@
 """USEFUSE cycle / performance models (paper §4.2, Eqs. (2)-(4)).
 
 The port of the reference package's ``repro.core.cycle_model``, minus its
-launch-timeline twins and serving-stage models (ROADMAP queue 1 items 9 and
-11).  The cycles model the paper's 100 MHz digit-serial accelerator, not
-the H100.
+serving-stage models (ROADMAP queue 1 item 11).  The cycles model the
+paper's 100 MHz digit-serial accelerator, not the H100.
 
 * Eq. (3) DS-1 spatial and Eq. (4) DS-2 temporal per-movement cycles; the
   launch planner's :meth:`~repro_torch.core.program.LaunchPlan.modeled_cycles`
@@ -17,6 +16,10 @@ the H100.
   multiplier per window, ``K*K * (n + acc)`` cycles.
 * Eq. (2): :func:`evaluate_design` and :func:`single_layer_result`, the
   duration and performance rows of the paper's Tables 1-2.
+* The launch-timeline twins (:func:`grid_pipeline_timeline`,
+  :func:`channel_tiled_body_timeline`): the same schedules as bars, ending
+  exactly at the cycle totals, for the Chrome-trace export
+  (:mod:`repro_torch.obs.timeline`).
 """
 
 from __future__ import annotations
@@ -210,6 +213,138 @@ def grid_pipeline_cycles(
     if not pipelined or cells <= 1:
         return cells * (body + input_dma)
     return input_dma + body + (cells - 1) * max(body, input_dma)
+
+
+@dataclass(frozen=True)
+class TimelineSegment:
+    """One bar of a modeled launch timeline: ``lane`` is ``"mxu"`` (compute)
+    or ``"dma"`` (HBM transfer), ``start``/``duration`` are cycles from
+    launch start.  Segments are produced by the ``*_timeline`` twins of the
+    cycle formulas above; the end of the last segment always equals the
+    corresponding ``*_cycles`` total, so a rendered timeline can never
+    disagree with the cost the planner optimized."""
+
+    lane: str
+    label: str
+    start: int
+    duration: int
+
+    @property
+    def end(self) -> int:
+        return self.start + self.duration
+
+
+def timeline_end(segments: list[TimelineSegment]) -> int:
+    """Cycle at which the last segment of a timeline finishes."""
+    return max((s.end for s in segments), default=0)
+
+
+def channel_tiled_body_timeline(
+    compute_mid: int,
+    compute_last: int,
+    dma_mid: int,
+    dma_slice: int,
+    c_tiles: int,
+    *,
+    pipelined: bool,
+) -> list[TimelineSegment]:
+    """The DMA-vs-MXU bars of one channel-tiled grid cell — the timeline twin
+    of :func:`channel_tiled_body_cycles` (same arguments, and the timeline
+    ends exactly at that cycle count).
+
+    Blocking: every slice fetch is exposed before its MXU pass.  Pipelined:
+    slice 0's fetch fills behind the mid pyramid, slice ``k+1``'s fetch hides
+    behind slice ``k``'s pass, the last slice's compute drains exposed.
+    """
+    ck = -(-compute_last // c_tiles)
+    segs: list[TimelineSegment] = []
+    if dma_mid:
+        segs.append(TimelineSegment("dma", "mid weights", 0, dma_mid))
+    if not pipelined:
+        t = dma_mid
+        if compute_mid:
+            segs.append(TimelineSegment("mxu", "mid pyramid", t, compute_mid))
+            t += compute_mid
+        for k in range(c_tiles):
+            segs.append(TimelineSegment("dma", f"w slice {k}", t, dma_slice))
+            segs.append(
+                TimelineSegment("mxu", f"last conv k={k}", t + dma_slice, ck)
+            )
+            t += dma_slice + ck
+        return segs
+    if compute_mid:
+        segs.append(TimelineSegment("mxu", "mid pyramid", dma_mid, compute_mid))
+    segs.append(TimelineSegment("dma", "w slice 0 (fill)", dma_mid, dma_slice))
+    s = dma_mid + max(compute_mid, dma_slice)
+    for k in range(c_tiles):
+        segs.append(TimelineSegment("mxu", f"last conv k={k}", s, ck))
+        if k + 1 < c_tiles:
+            segs.append(TimelineSegment("dma", f"w slice {k + 1}", s, dma_slice))
+            s += max(ck, dma_slice)
+    return segs
+
+
+def grid_pipeline_timeline(
+    cells: int,
+    body: int,
+    input_dma: int,
+    *,
+    pipelined: bool,
+    max_cells: int = 64,
+) -> list[TimelineSegment]:
+    """The DMA-vs-MXU bars of one batch element's movement grid — the
+    timeline twin of :func:`grid_pipeline_cycles` (same arguments; the
+    timeline ends exactly at that cycle count).
+
+    Serial: each cell's halo fetch is exposed before its pyramid.  Pipelined
+    (the revolving ``x_slots=2`` landing buffer): cell 0's fetch is the
+    warm-up fill, cell ``n`` starts cell ``n+1``'s fetch alongside its own
+    pyramid, the last cell's compute drains exposed.  Grids beyond
+    ``max_cells`` render the leading cells individually and fold the steady-
+    state remainder into one labelled segment so a VGG-scale ``alpha^2``
+    never explodes the trace — the elided segment keeps the end exact.
+    """
+    segs: list[TimelineSegment] = []
+    shown = cells if cells <= max_cells else max(1, max_cells - 1)
+    if not pipelined or cells <= 1:
+        t = 0
+        for n in range(shown):
+            segs.append(TimelineSegment("dma", f"halo tile {n}", t, input_dma))
+            segs.append(
+                TimelineSegment("mxu", f"pyramid cell {n}", t + input_dma, body)
+            )
+            t += input_dma + body
+        if shown < cells:
+            rest = cells - shown
+            segs.append(
+                TimelineSegment(
+                    "mxu",
+                    f"cells {shown}..{cells - 1} x{rest} (elided)",
+                    t,
+                    rest * (input_dma + body),
+                )
+            )
+        return segs
+    step = max(body, input_dma)
+    segs.append(TimelineSegment("dma", "halo tile 0 (fill)", 0, input_dma))
+    s = input_dma
+    for n in range(shown):
+        segs.append(TimelineSegment("mxu", f"pyramid cell {n}", s, body))
+        if n + 1 < cells:
+            segs.append(TimelineSegment("dma", f"halo tile {n + 1}", s, input_dma))
+        if n + 1 < shown:
+            s += step
+    if shown < cells:
+        rest = cells - shown  # steady-state cells folded into one bar
+        segs.append(
+            TimelineSegment(
+                "mxu",
+                f"cells {shown}..{cells - 1} x{rest} (elided)",
+                s + step,
+                (rest - 1) * step + body,
+            )
+        )
+    return segs
 
 
 # ---------------------------------------------------------------------------

@@ -557,7 +557,7 @@ class LaunchPlan:
     def body_cycles(self) -> int:
         """Per-grid-cell compute(+weight-DMA) cycles — the ``body`` argument
         of :func:`~repro_torch.core.cycle_model.grid_pipeline_cycles`, shared by
-        :meth:`modeled_cycles` and the reference's modeled timelines so cost and
+        :meth:`modeled_cycles` and :meth:`modeled_timeline` so cost and
         rendering can never disagree.
 
         Per movement: DS-1 compute cycles (Eq. 3), plus the streamed-weight
@@ -604,7 +604,7 @@ class LaunchPlan:
         """The raw compute/DMA cycle terms of one grid cell: ``(compute,
         stream)`` with ``stream`` None for resident launches, else a dict
         naming the weight-DMA regime and its terms — consumed by both
-        :meth:`body_cycles` (and the reference's ``body_detail_timeline``)."""
+        :meth:`body_cycles` and :meth:`body_detail_timeline`."""
         from .cycle_model import (
             ds1_cycles_per_movement,
             ds1_split_cycles_per_movement,
@@ -634,6 +634,57 @@ class LaunchPlan:
             return compute, {"kind": "pipelined", "dma": dma, "fill": fill}
         return compute, {"kind": "blocking", "dma": dma}
 
+    def body_detail_timeline(self):
+        """DMA-vs-MXU bars *inside* one grid cell — weight movement against
+        the conv cascade (:class:`~repro_torch.core.cycle_model.TimelineSegment`
+        list ending exactly at :meth:`body_cycles`): a single compute bar for
+        resident launches, exposed-then-compute for blocking streams, the
+        fill-overlap shape for the double-buffered weight pipeline, and the
+        k-axis fill/steady/drain for channel-tiled launches."""
+        from .cycle_model import TimelineSegment, channel_tiled_body_timeline
+
+        compute, stream = self._body_terms()
+        if stream is None:
+            return [TimelineSegment("mxu", "pyramid (resident)", 0, compute)]
+        kind = stream["kind"]
+        if kind == "channel_tiled":
+            return channel_tiled_body_timeline(
+                stream["compute_mid"],
+                stream["compute_last"],
+                stream["dma_mid"],
+                stream["dma_slice"],
+                self.c_tiles,
+                pipelined=self.w_slots > 1,
+            )
+        dma = stream["dma"]
+        segs = [TimelineSegment("dma", "weights", 0, dma)]
+        if kind == "pipelined":
+            # compute starts once level 0's weights (the fill) have landed;
+            # later levels' DMA hides behind the cascade
+            segs.append(
+                TimelineSegment("mxu", "pyramid", stream["fill"], compute)
+            )
+        else:
+            segs.append(TimelineSegment("mxu", "pyramid", dma, compute))
+        return segs
+
+    def modeled_timeline(self, *, max_cells: int = 64):
+        """The launch's modeled DMA-vs-MXU timeline for one batch element
+        (:class:`~repro_torch.core.cycle_model.TimelineSegment` list): the
+        uniform-stride grid's input halo-tile stream against the per-cell
+        pyramid bodies, serial or software-pipelined per ``x_slots``, ending
+        exactly at ``modeled_cycles(batch=1)``.  The Chrome-trace exporter
+        (:mod:`repro_torch.obs.timeline`) renders this next to measured
+        spans."""
+        from .cycle_model import grid_pipeline_timeline
+
+        return grid_pipeline_timeline(
+            self.program.alpha ** 2,
+            self.body_cycles(),
+            self.program.input_dma_cycles(),
+            pipelined=self.x_slots > 1,
+            max_cells=max_cells,
+        )
 
     def describe(
         self, batch: int = 1, vmem_budget: int | None = None
@@ -641,7 +692,7 @@ class LaunchPlan:
         """The launch as one observability row: every plan knob plus the
         modeled byte/cycle quantities the planner optimized, in one flat
         JSON-safe dict (the span schema of DESIGN.md §12 and the row format
-        of the reference's ``repro.obs.explain``).  ``vmem_budget`` adds the
+        of :mod:`repro_torch.obs.explain`).  ``vmem_budget`` adds the
         headroom column (budget minus modeled working set)."""
         prog = self.program
         row = {

@@ -22,8 +22,9 @@ PyTorch: the halo tiles of all grid cells gathered into one batch
 dimension, each level as an ``F.conv2d`` on the tiles plus the bias, ReLU,
 validity masks and pool epilogue, the END cascade as a ``torch.where``
 against the closed form, and the same skip map.  The wrapper takes it
-**only** for tensors on the CPU; for a CUDA tensor it launches the kernel
-or raises.
+for tensors on the CPU, and on a CUDA tensor only when the caller passes
+``plain=True`` (the guarded runner's recorded ``eager`` rung); otherwise a
+CUDA tensor launches the kernel or raises.
 
 Value contract (as in the reference, DESIGN.md §11): operands arrive in
 ``program.compute_dtype``; every conv accumulates in float32; the epilogue
@@ -204,6 +205,7 @@ def fused_pyramid_kernel(
     x_slots: int = 2,
     c_tiles: int = 1,
     weights_flat: torch.Tensor | None = None,
+    plain: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the fused pyramid over the ``(B, alpha, alpha)`` grid.
 
@@ -219,12 +221,15 @@ def fused_pyramid_kernel(
     ``(B, alpha, alpha, Q)`` int32 END flags (level 0 never skips).
 
     A tensor on the CPU runs :func:`fused_pyramid_plain`; a CUDA tensor
-    launches the CUDA kernel or raises.
+    launches the CUDA kernel or raises.  ``plain=True`` runs the plain
+    version on any device: only the guarded runner's ``eager`` rung
+    (:mod:`repro_torch.robust.degrade`) passes it, and that rung records a
+    ``FallbackEvent`` each time.
     """
     del w_slots  # schedule-only on the TPU; one flat weight read here
     cdt = _check_args(x_padded, weights, biases, program, stream_weights,
                       x_slots, c_tiles, weights_flat)
-    if x_padded.device.type == "cpu":
+    if plain or x_padded.device.type == "cpu":
         return fused_pyramid_plain(
             x_padded, weights, biases, program=program, relu=relu,
             end_skip=end_skip, weights_flat=weights_flat,

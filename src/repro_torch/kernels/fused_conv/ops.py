@@ -58,6 +58,7 @@ def fused_pyramid(
     vmem_budget: int = VMEM_BUDGET_BYTES,
     weights_flat: torch.Tensor | None = None,
     compute_dtype: str = "float32",
+    plain: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused Q-conv pyramid forward as a single kernel launch.
 
@@ -75,7 +76,9 @@ def fused_pyramid(
     before it is padded) and accumulation stays float32 in the kernel.
 
     Runs on the device of ``x``: the CUDA kernel on a CUDA tensor, its plain
-    PyTorch version on a CPU tensor.  Returns ``(out, skip)`` with ``skip``:
+    PyTorch version on a CPU tensor.  ``plain=True`` takes the plain
+    version on any device; only the guarded runner's ``eager`` rung passes
+    it.  Returns ``(out, skip)`` with ``skip``:
     (B, alpha, alpha, Q) int32 END-cascade flags (level 0 never skips).
     """
     compute_dtype = canonical_dtype(compute_dtype)
@@ -154,6 +157,7 @@ def fused_pyramid(
         x_slots=x_slots,
         c_tiles=c_tiles,
         weights_flat=weights_flat,
+        plain=plain,
     )
 
 

@@ -21,9 +21,12 @@ global-average-pool mean — runs in float32.  Logits then differ from the
 float32 reference only by operand rounding, bounded by
 :func:`bf16_logit_tol`.
 
-Not ported here (they come with the ``robust`` and serving slices): the
-reference's guarded branch of ``run_network`` and its ``jit_trace_count``
-retrace counter.
+Observed and guarded forwards (DESIGN.md §12, §13): under
+``repro_torch.obs.tracing()`` each launch is timed (CUDA events on a card)
+and recorded as a span; under ``repro_torch.robust.guarding()`` the forward
+runs :func:`repro_torch.robust.degrade.run_network_guarded` — preflight,
+per-launch sentinels and the degradation ladder.  The reference's
+``jit_trace_count`` retrace counter comes with the serving slice.
 """
 
 from __future__ import annotations
@@ -38,8 +41,9 @@ from repro_torch.core.cycle_model import DEFAULT_PARAMS
 from repro_torch.core.dtypes import canonical_dtype, torch_dtype
 from repro_torch.core.executor import conv2d_nhwc, full_fp32, maxpool_nhwc
 from repro_torch.kernels.fused_conv.ops import flatten_weights, fused_pyramid
-from repro_torch.obs.trace import LaunchSpan, get_tracer
+from repro_torch.obs.trace import LaunchSpan, SpanTimer, device_label, get_tracer
 from repro_torch.robust.errors import PreflightError
+from repro_torch.robust.guard import get_guard
 
 from .graph import Graph, Node, infer_shapes
 from .partition import PartitionPlan, auto_partition
@@ -187,10 +191,13 @@ def _forward(
     cdt: str,
     launch_wrapper=None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """The plan-driven forward loop, shared by the plain and the traced
-    path.  ``launch_wrapper(pyr, call, x_in)``, when given, wraps each
-    fused-pyramid launch (the traced path times it there); ``call(**kw)``
-    re-issues the launch with keyword overrides."""
+    """The plan-driven forward loop, shared by the plain, the traced and
+    the guarded path.  ``launch_wrapper(pyr, call, x_in)``, when given,
+    wraps each fused-pyramid launch — the traced path times it there, the
+    guarded path (``repro_torch.robust.degrade``) runs its degradation
+    ladder there, using ``x_in`` for replans and reference quarantines;
+    ``call(**kw)`` re-issues the launch with keyword overrides, e.g.
+    ``call(plain=True)`` on the ladder's eager rung."""
     tdt = torch_dtype(cdt)
     graph = plan.graph
     covered = plan.covered()
@@ -259,20 +266,12 @@ def _run_network_traced(x, params, tracer, *, plan, end_skip, cdt):
     ``run_network`` summary event."""
     model = plan.graph.name
     batch = int(x.shape[0])
+    device = device_label(x.device)
 
     def wrapper(pyr, call, x_in):
-        t0 = time.perf_counter()
-        if x_in.is_cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            y, skip = call()
-            end.record()
-            end.synchronize()
-            dur_ms = start.elapsed_time(end)
-        else:
-            y, skip = call()
-            dur_ms = (time.perf_counter() - t0) * 1e3
+        timer = SpanTimer(device=x_in.device).start()
+        y, skip = call()
+        dur_ms = timer.stop_ms()
         d = pyr.launch.describe(batch, plan.vmem_budget)
         tracer.record_span(LaunchSpan(
             name=pyr.name,
@@ -291,8 +290,9 @@ def _run_network_traced(x, params, tracer, *, plan, end_skip, cdt):
             vmem_bytes=d["vmem_bytes"],
             modeled_cycles=d["modeled_cycles"],
             modeled_us=d["modeled_cycles"] / DEFAULT_PARAMS.freq_mhz,
-            start_s=t0,
+            start_s=timer.start_s,
             duration_ms=dur_ms,
+            device=device,
         ))
         return y, skip
 
@@ -349,13 +349,25 @@ def run_network(
     ``(B, alpha, alpha, Q)`` int32 END-cascade flag map.  Aggregate with
     :func:`skip_fractions`.
 
-    With a tracer installed (``repro_torch.obs.tracing()``) each launch is
-    timed and recorded as a span; the default no-op tracer costs one
-    attribute check.
+    With a guard installed (``repro_torch.robust.guarding()``) the forward
+    runs :func:`repro_torch.robust.degrade.run_network_guarded` instead:
+    preflight, a numeric sentinel read on the host per launch, and the
+    degradation ladder.  Otherwise, with a tracer installed
+    (``repro_torch.obs.tracing()``) each launch is timed and recorded as a
+    span.  The default no-op guard and tracer cost one attribute check
+    each.
     """
-    cdt = canonical_dtype(plan.compute_dtype if dtype is None else dtype)
-    tracer = get_tracer()
+    guard = get_guard()
     with full_fp32():
+        if guard.enabled:
+            from repro_torch.robust.degrade import run_network_guarded
+
+            return run_network_guarded(
+                x, params, plan=plan, end_skip=end_skip, dtype=dtype,
+                guard=guard,
+            )
+        cdt = canonical_dtype(plan.compute_dtype if dtype is None else dtype)
+        tracer = get_tracer()
         if not tracer.enabled:
             return _forward(x, params, plan=plan, end_skip=end_skip, cdt=cdt)
         return _run_network_traced(

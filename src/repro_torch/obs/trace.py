@@ -21,16 +21,17 @@ their uninstrumented fast path.  Enable collection with::
     print(collector.spans)
 
 The traced runner (:func:`repro_torch.net.runner.run_network`) times each
-launch with CUDA events on the launch's stream when the input lives on a
-CUDA device, and with the host clock otherwise (CPU tensors complete
-synchronously).
+launch with a :class:`SpanTimer`: CUDA events on the launch's stream when
+the input lives on a CUDA device, the host clock otherwise (CPU tensors
+complete synchronously).  Each span names the device it was measured on
+(:func:`device_label`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass(frozen=True)
@@ -64,6 +65,7 @@ class LaunchSpan:
     modeled_us: float  # modeled_cycles at the cycle model's 100 MHz
     start_s: float
     duration_ms: float
+    device: str = "cpu"  # where duration_ms was measured (device_label)
 
 
 @dataclass(frozen=True)
@@ -149,3 +151,57 @@ def tracing(collector: TraceCollector | None = None):
         yield col
     finally:
         set_tracer(prev)
+
+
+def _is_cuda(device) -> bool:
+    if device is None:
+        return False
+    return str(getattr(device, "type", device)).split(":")[0] == "cuda"
+
+
+def device_label(device) -> str:
+    """The name a measurement on ``device`` is filed under: the card's name
+    (``torch.cuda.get_device_name``) for a CUDA device, else the device
+    type (``"cpu"``)."""
+    if _is_cuda(device):
+        import torch
+
+        return torch.cuda.get_device_name(device)
+    return str(getattr(device, "type", device or "cpu")).split(":")[0]
+
+
+@dataclass
+class SpanTimer:
+    """Measure one span body: ``start()`` ... ``stop_ms()``.
+
+    ``start_s`` is :func:`time.perf_counter` at :meth:`start`, on every
+    device.  Given a CUDA ``device``, :meth:`start` and :meth:`stop_ms`
+    record CUDA events on that device's current stream and :meth:`stop_ms`
+    waits for the second and returns the device time between them; for any
+    other device (or none) it returns the host clock's time since
+    :meth:`start`.  The two clocks are never mixed within one span."""
+
+    start_s: float = 0.0
+    device: object = None
+    _events: tuple | None = field(default=None, repr=False)
+
+    def start(self) -> SpanTimer:
+        self.start_s = time.perf_counter()
+        if _is_cuda(self.device):
+            import torch
+
+            stream = torch.cuda.current_stream(self.device)
+            begin = torch.cuda.Event(enable_timing=True)
+            begin.record(stream)
+            self._events = (begin, torch.cuda.Event(enable_timing=True))
+        return self
+
+    def stop_ms(self) -> float:
+        if self._events is None:
+            return (time.perf_counter() - self.start_s) * 1e3
+        import torch
+
+        begin, end = self._events
+        end.record(torch.cuda.current_stream(self.device))
+        end.synchronize()
+        return begin.elapsed_time(end)

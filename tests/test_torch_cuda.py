@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: build, the pyramid kernel vs its
 plain PyTorch version per pyramid (equal skip maps, outputs within
-tolerance), run_network on CUDA vs the port's reference_network, and the
-SOP + END kernel vs its plain version.
+tolerance), run_network on CUDA vs the port's reference_network (plain,
+traced and guarded, with one injected launch failure taking the eager
+rung), and the SOP + END kernel vs its plain version.
 
 Every test here needs an NVIDIA card with nvcc and skips elsewhere.  Run
 on the card with ``PYTHONPATH=src python -m pytest -m cuda
@@ -22,6 +23,12 @@ from repro_torch.kernels.online_sop import online_sop as tos  # noqa: E402
 from repro_torch.net.graph import MODELS  # noqa: E402
 from repro_torch.net.partition import auto_partition  # noqa: E402
 from repro_torch.obs import tracing  # noqa: E402
+from repro_torch.robust import (  # noqa: E402
+    FaultInjected,
+    GuardConfig,
+    guarding,
+    inject,
+)
 from repro_torch.net.runner import (  # noqa: E402
     bf16_logit_tol,
     init_network_params,
@@ -248,7 +255,63 @@ def test_traced_run_times_launches_with_cuda_events(cuda):
     assert logits.is_cuda
     assert [s.name for s in col.spans] == [p.name for p in plan.pyramids]
     assert all(s.duration_ms > 0 for s in col.spans)
+    assert {s.device for s in col.spans} == {torch.cuda.get_device_name(cuda)}
     assert col.events[-1].name == "run_network"
+
+
+def _guarded_resnet(cuda):
+    graph = MODELS["resnet18"](input_size=64, num_classes=10)
+    master = init_network_params(graph, seed=0, device=cuda)
+    plan = auto_partition(graph, batch=1)
+    x = torch.randn((1, 64, 64, 3), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    return graph, master, plan, prepare_network_params(plan, master), x
+
+
+def _plan_counts(plan):
+    want = {k.symbol: 0 for k in build.KERNELS}
+    for p in plan.pyramids:
+        want[(fc.PYRAMID_KTILED if p.launch.c_tiles > 1
+              else fc.PYRAMID).symbol] += 1
+    return want
+
+
+def test_clean_guarded_forward_launches_every_kernel(cuda):
+    """Under guarding() with no fault: no fallback, every launch clean and
+    through its kernel, logits within tolerance of reference_network."""
+    graph, master, plan, params, x = _guarded_resnet(cuda)
+    build.reset_launch_counts()
+    with guarding(GuardConfig(), source_params=master) as guard:
+        logits, skips = run_network(x, params, plan=plan)
+    counts = {k.symbol: k.launches for k in build.KERNELS}
+    rep = guard.last_report
+    assert rep.events == [] and rep.clean_launches == rep.launches
+    assert rep.launches == plan.n_launches() == len(skips)
+    assert counts == _plan_counts(plan)
+    ref = reference_network(x, graph, master)
+    assert float((logits - ref).abs().max()) <= _tol(ref, torch.float32)
+
+
+def test_guarded_launch_failure_takes_the_eager_rung(cuda):
+    """One injected launch failure: one recorded eager event, that launch
+    through the plain version on the card, every other launch through its
+    kernel."""
+    graph, master, plan, params, x = _guarded_resnet(cuda)
+    first = plan.pyramids[0]
+    build.reset_launch_counts()
+    with guarding(GuardConfig(), source_params=master) as guard:
+        with inject(seed=0) as inj:
+            inj.raise_at("run", launch=first.name)
+            logits, _ = run_network(x, params, plan=plan)
+    rep = guard.last_report
+    assert [(e.launch, e.rung) for e in rep.events] == [(first.name, "eager")]
+    assert rep.clean_launches == rep.launches - 1
+    want = _plan_counts(plan)
+    want[(fc.PYRAMID_KTILED if first.launch.c_tiles > 1
+          else fc.PYRAMID).symbol] -= 1
+    assert {k.symbol: k.launches for k in build.KERNELS} == want
+    ref = reference_network(x, graph, master)
+    assert float((logits - ref).abs().max()) <= _tol(ref, torch.float32)
 
 
 # (P, m, n_digits): the VGG-16 CONV1 and CONV2 window widths; one to three
@@ -257,6 +320,30 @@ def test_traced_run_times_launches_with_cuda_events(cuda):
 # (20000, 313 k-tiles)
 SOP_CASES = [(1001, 27, 16), (4096, 576, 16), (999, 64, 24), (513, 65, 33),
              (777, 363, 40), (64, 20000, 12)]
+
+
+def test_guarded_real_launch_error_raises(cuda, monkeypatch):
+    """A launch the card refuses (a cooperative grid one block larger than
+    fits) is not an injected fault: it raises out of the guarded run
+    instead of taking the eager rung, and nothing runs the plain version."""
+    graph, master, plan, params, x = _guarded_resnet(cuda)
+    first = plan.pyramids[0]
+    kernel = fc.PYRAMID_KTILED if first.launch.c_tiles > 1 else fc.PYRAMID
+    fits = kernel.resident_blocks
+    monkeypatch.setattr(kernel, "resident_blocks",
+                        lambda code, dev: fits(code, dev) + 1)
+    monkeypatch.setattr(fc, "fused_pyramid_plain", _never)
+    build.reset_launch_counts()
+    with guarding(GuardConfig(), source_params=master) as guard:
+        with pytest.raises(RuntimeError, match="launch failed") as err:
+            run_network(x, params, plan=plan)
+    assert not isinstance(err.value, FaultInjected)
+    assert guard.last_report is None
+    assert kernel.launches == 0
+
+
+def _never(*args, **kwargs):
+    raise AssertionError("the plain version ran on the card")
 
 
 def _sop_operands(P, m, n_filters, cuda):

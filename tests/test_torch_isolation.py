@@ -48,6 +48,28 @@ def test_no_module_imports_jax_or_the_reference():
     assert int(out.stdout.split()[0]) >= 47  # the three slices' modules
 
 
+def test_only_the_eager_rung_asks_for_the_plain_version():
+    """``plain=`` on a kernel wrapper runs the plain version on a CUDA
+    tensor.  Only the guarded runner's recorded eager rung may ask for it;
+    every other call in the port passes no ``plain`` or forwards its own."""
+    import ast
+
+    askers = []
+    for path in sorted([*(REPO / "src" / "repro_torch").rglob("*.py"),
+                        REPO / "chip_smoke.py"]):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if not isinstance(node, ast.Call):
+                continue
+            for kw in node.keywords:
+                forwarded = (isinstance(kw.value, ast.Name)
+                             and kw.value.id == "plain")
+                if kw.arg == "plain" and not forwarded:
+                    askers.append(f"{path.relative_to(REPO)}:{node.lineno}")
+    assert [a.split(":")[0] for a in askers] == [
+        "src/repro_torch/robust/degrade.py"
+    ], askers
+
+
 def test_chip_smoke_refuses_without_cuda():
     """No card: non-zero exit and no result line on stdout."""
     out = subprocess.run(
@@ -82,10 +104,13 @@ def test_entry_points_need_a_device_without_cuda():
         "from repro_torch.models.model import init_params\n"
         "from repro_torch.models.serving import init_caches\n"
         "from repro_torch.launch.serve import serve\n"
+        "from repro_torch.obs import explain\n"
         "cfg = get_config('mamba2_780m').reduced()\n"
         "for f in (resolve_device, lambda: init_network_params(lenet5()),\n"
         "          lambda: init_params(cfg), lambda: init_caches(cfg, 1, 4),\n"
-        "          lambda: serve('mamba2_780m')):\n"
+        "          lambda: serve('mamba2_780m'),\n"
+        "          lambda: explain.main(['--model', 'lenet', '--run']),\n"
+        "          lambda: explain.main(['--model', 'lenet', '--guard'])):\n"
         "    try:\n"
         "        f()\n"
         "    except RuntimeError as e:\n"
