@@ -36,7 +36,10 @@ any failure exits non-zero:
    VGG-16 f32 batch 1, each held against the port's ``reference_network``
    on the card (f32 within ``_tol``, bf16 within ``bf16_logit_tol``), with
    every kernel's launch count reset just before each forward and checked
-   just after against that forward's plan.
+   just after against that forward's plan.  That first forward of each
+   runs eagerly and is captured into a CUDA graph (the compiled forward,
+   ``repro_torch.net.runner``); the timed forwards replay it, and the
+   forward issued launch by launch is timed beside them.
 4. sop — the windows of VGG-16 ``CONV1`` (of the VGG image above) and
    ``CONV2`` (of ``relu(CONV1)``) at 224², P = 50,176 each, scaled by one
    power of two into (-1, 1), through ``online_sop_end`` once per layer
@@ -97,7 +100,29 @@ any failure exits non-zero:
    ``python -m repro_torch.obs.explain --model resnet18 --run --guard
    --trace FILE`` as a subprocess.  Its launches go on an ``ops launches``
    line of their own.
-7. results — one ``{"kernels": [...]}`` line (for the pyramid kernels
+7. serve — ResNet-18 at full width (224x224x3, 1000 classes, phase 3's
+   params) through the serving engine (``repro_torch.net.serve``,
+   ``ServeConfig(buckets=(1, 2, 4, 8))``, f32): two waves of the same
+   seeded stream of 24 requests of 1-3 images, every request's logits
+   against ``reference_network`` on its own rows (``_tol``), wave 1
+   capturing one CUDA graph a bucket and wave 2 none (no plan, partition
+   or capture miss), A's and B's launches equal to the served plans'
+   launches per batch; per bucket the replayed forward against the eager
+   one bit for bit, b - 1 real rows padded against the same rows unpadded
+   (``_tol``, skip maps equal), the replay, the eager forward and the
+   pinned staging copy timed (median of 5 after a warm-up), the waves'
+   p50/p95 latency and images/s; one bf16 engine at bucket 8
+   (``bf16_logit_tol``); a deadline-aware engine under an overload burst
+   (some requests shed typed, every admitted one on time or typed); the
+   four ``INJECT_MODES`` (breaker 1, watchdog 3, the sentinel for
+   ``poison``), each ending every request in a result or a typed error
+   with its launches counted; ``ServingFrontend`` hammered by 4 producer
+   threads x 8 requests (every handle resolves exactly once); and
+   ``python -m repro_torch.net.serve --model resnet18 --requests 32``
+   as subprocesses, ``--dry-stream`` and ``--inject slow_launch
+   --breaker 1 --watchdog 3``.  Its launches go on a ``serve launches``
+   line of their own.
+8. results — one ``{"kernels": [...]}`` line (for the pyramid kernels
    ``launches`` sums the four forwards, ``launches_per_forward`` splits
    it, and every time sums the per-launch medians over the dense pyramids
    of the four plans; for the SOP kernel ``launches_per_layer`` splits
@@ -515,6 +540,7 @@ class Smoke:
         run["summary"] = dict(
             run=run["key"], launches=run["launches"],
             logits_max_abs_err=err, tol=tol, forward_ms=t,
+            eager_forward_ms=_forward_ms(run, eager=True),
             **{f"sum_{k}": sum(r[k] for r in rows) for k in (
                 "ms", "call_ms", "bound_ms", "plain_ms", "library_ms")},
         )
@@ -1494,7 +1520,8 @@ class Ops:
                 sentinel(y)()
 
         row = {
-            "untraced_ms": run["summary"]["forward_ms"],
+            "untraced_ms": run["summary"]["eager_forward_ms"],
+            "replayed_ms": run["summary"]["forward_ms"],
             "traced_ms": counted_ms(traced, "traced"),
             "guarded_ms": counted_ms(guarded, "guarded"),
             "preflight_ms": p50_ms(lambda: preflight(
@@ -1557,16 +1584,482 @@ class Ops:
         return self.summary
 
 
-def _forward_ms(run) -> float:
+# ---- phase serve ----------------------------------------------------------
+
+# ResNet-18 at full width (224x224x3, 1000 classes) on phase 3's master
+# params, served through buckets (1, 2, 4, 8); nothing cut
+SERVE_RUN = "resnet18/float32/b1"
+SERVE_BUCKETS = (1, 2, 4, 8)
+# a wave: 24 requests of 1, 2, 3, 1, 2, 3, ... images, drained after 1, 1,
+# 1 and 4 requests in turn, so that the batches fill every bucket
+SERVE_REQUESTS = 24
+SERVE_SIZES = (1, 2, 3)
+SERVE_GROUPS = (1, 1, 1, 4)
+SERVE_REPS = 5
+# the overload run: injected slow launches make a batch wall ~60 ms, far
+# above the card's few ms, so the deadlines rest on what the engine models
+SERVE_DELAY_S = 0.06
+SERVE_BURST = 20
+
+
+class Serve:
+    """The serving engine and its front end (``repro_torch.net.serve``,
+    ``repro_torch.net.frontend``) on ResNet-18 at 224 x 224, every fused
+    batch through the compiled forward: kernels A and B replayed from
+    captured CUDA graphs."""
+
+    def __init__(self, smoke):
+        self.torch = smoke.torch
+        self.device = smoke.device
+        run = next(r for r in smoke.runs if r["key"] == SERVE_RUN)
+        self.graph, self.master = run["graph"], run["params"]
+        self.summary = {}
+        self.launches = {}
+
+    def engine(self, **cfg):
+        from repro_torch.net.serve import ServeConfig, ServingEngine
+
+        return ServingEngine(self.graph, self.master,
+                             ServeConfig(buckets=SERVE_BUCKETS, **cfg),
+                             device=self.device)
+
+    def images(self, rows, seed):
+        import numpy as np
+
+        g = self.graph
+        return np.random.default_rng(seed).standard_normal(
+            (rows, g.input_size, g.input_size, g.in_channels)
+        ).astype(np.float32)
+
+    def stream(self, seed):
+        return [self.images(SERVE_SIZES[i % len(SERVE_SIZES)], seed + i)
+                for i in range(SERVE_REQUESTS)]
+
+    def check(self, results, xs, what, *, dtype="float32") -> float:
+        """Every request completed, its logits against the port's
+        reference_network on its own rows (f32: ``_tol``; bf16:
+        ``bf16_logit_tol``); returns the largest error."""
+        from repro_torch.net.runner import bf16_logit_tol, reference_network
+
+        torch, worst = self.torch, 0.0
+        for res, x in zip(results, xs):
+            if not res.ok:
+                raise AssertionError(f"serve {what}: request {res.id}"
+                                     f" failed: {res.error!r}")
+            ref = reference_network(torch.from_numpy(x).to(self.device),
+                                    self.graph, self.master).cpu()
+            got = torch.from_numpy(res.logits)
+            if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"serve {what}: logits {got.shape}")
+            err = float((got - ref).abs().max())
+            tol = (_tol(ref, "float32") if dtype == "float32"
+                   else bf16_logit_tol(ref))
+            if not err <= tol:
+                raise AssertionError(f"serve {what}: request {res.id} max"
+                                     f" abs err {err} > tol {tol}")
+            worst = max(worst, err)
+        return worst
+
+    @staticmethod
+    def plan_counts(plan):
+        from repro_torch.kernels import build
+        from repro_torch.kernels.fused_conv import fused_conv as fc
+
+        want = {k.symbol: 0 for k in build.KERNELS}
+        for pyr in plan.pyramids:
+            want[(fc.PYRAMID_KTILED if pyr.launch.c_tiles > 1
+                  else fc.PYRAMID).symbol] += 1
+        return want
+
+    def counted(self, eng, fn, what):
+        """Run ``fn`` with the launch counts reset just before and read
+        just after; they must equal the served plans' launches: each fused
+        batch its bucket plan's, the eager and reference routes none."""
+        from repro_torch.kernels import build
+
+        self.torch.cuda.synchronize()
+        build.reset_launch_counts()
+        before = dict(eng.route_batches)
+        out = fn()
+        self.torch.cuda.synchronize()
+        counts = {k.symbol: k.launches for k in build.KERNELS}
+        want = {k.symbol: 0 for k in build.KERNELS}
+        for (bucket, route), n in eng.route_batches.items():
+            n -= before.get((bucket, route), 0)
+            if route == "fused" and n:
+                for k, v in self.plan_counts(eng._entry(bucket).plan).items():
+                    want[k] += n * v
+        if counts != want:
+            raise AssertionError(f"serve {what}: launch counts {counts} !="
+                                 f" the served plans' {want}")
+        self.launches[what] = counts
+        return out
+
+    # -- the two waves ------------------------------------------------------
+
+    def waves(self) -> dict:
+        from repro_torch.net import runner
+        from repro_torch.net.partition import partition_cache_info
+
+        eng = self.engine()
+        stream = self.stream(7)
+        rows = {}
+
+        def run():
+            results, i, g = [], 0, 0
+            while i < len(stream):
+                n = SERVE_GROUPS[g % len(SERVE_GROUPS)]
+                results += eng.serve(stream[i:i + n])
+                i, g = i + n, g + 1
+            return results
+
+        for wave in (1, 2):
+            traces = runner.jit_trace_count()
+            misses = eng.cache_counters["misses"]
+            part = partition_cache_info().misses
+            t0 = time.perf_counter()
+            results = self.counted(eng, run, f"wave {wave}")
+            wall_s = time.perf_counter() - t0
+            row = dict(
+                requests=len(results), images=sum(r.rows for r in results),
+                buckets=sorted({r.bucket for r in results}),
+                captures=runner.jit_trace_count() - traces,
+                plan_misses=eng.cache_counters["misses"] - misses,
+                partition_misses=partition_cache_info().misses - part,
+                logits_max_abs_err=self.check(results, stream,
+                                              f"wave {wave}"),
+                wall_s=wall_s, launches=self.launches[f"wave {wave}"],
+            )
+            rows[f"wave{wave}"] = row
+            print(f"serve wave {wave} " + json.dumps(row), flush=True)
+        if rows["wave1"]["buckets"] != list(SERVE_BUCKETS):
+            raise AssertionError(f"serve: buckets {rows['wave1']['buckets']}")
+        if rows["wave1"]["captures"] != len(SERVE_BUCKETS):
+            raise AssertionError("serve: wave 1 did not capture once a"
+                                 f" bucket: {rows['wave1']}")
+        w2 = rows["wave2"]
+        if (w2["captures"], w2["plan_misses"], w2["partition_misses"]) != (
+                0, 0, 0):
+            raise AssertionError(f"serve: wave 2 recompiled: {w2}")
+        rows["summary"] = eng.summary()
+        self.engine_f32 = eng
+        return rows
+
+    # -- each bucket: the replay against the eager forward, staging ---------
+
+    def buckets(self) -> dict:
+        """Per bucket: the replayed forward against the eager forward at
+        the same key, bit for bit; ``b - 1`` real rows padded to the bucket
+        against the same rows unpadded under the same plan (``_tol``, skip
+        maps equal); the replay, the eager forward and the staging copy
+        alone timed (median of 5 after a warm-up, host clock ending in a
+        synchronize); the waves' latency and throughput beside them."""
+        import numpy as np
+
+        from repro_torch.net import runner
+        from repro_torch.net.runner import run_network
+        from repro_torch.net.serve import pad_to_bucket
+        from repro_torch.obs.stats import timed_stats_ms
+
+        torch, eng = self.torch, self.engine_f32
+        waves = {r["bucket"]: r for r in
+                 self.summary["waves"]["summary"]["buckets"]}
+        out = {}
+        for b in SERVE_BUCKETS:
+            entry = eng._entry(b)
+            host = self.images(b, 100 + b)
+            x = torch.from_numpy(host).to(self.device)
+
+            def replay(x=x, entry=entry):
+                return run_network(x, entry.prepared, plan=entry.plan)
+
+            def eager(x=x, entry=entry):
+                return _eager_forward(x, entry.prepared, entry.plan,
+                                      "float32")
+
+            traces = runner.jit_trace_count()
+            y, skips = replay()
+            if runner.jit_trace_count() != traces:
+                raise AssertionError(f"serve bucket {b}: the forward"
+                                     " captured; the waves' graph missed")
+            ye, skips_e = eager()
+            torch.cuda.synchronize()
+            if not (torch.equal(y, ye) and all(
+                    torch.equal(skips[k], skips_e[k]) for k in skips_e)):
+                raise AssertionError(f"serve bucket {b}: the replay differs"
+                                     " from the eager forward")
+            pad_err = None
+            if b > 1:
+                real = b - 1
+                padded = torch.from_numpy(pad_to_bucket(host[:real], b))
+                yp, sp = eager(padded.to(self.device))
+                yu, su = eager(x[:real])
+                pad_err = float((yp[:real] - yu).abs().max())
+                if not pad_err <= _tol(yu, "float32") or not all(
+                        torch.equal(sp[k][:real], su[k]) for k in su):
+                    raise AssertionError(f"serve bucket {b}: padded rows"
+                                         f" differ (err {pad_err})")
+
+            def stage(host=host):
+                _, ready, _ = eng._to_device(host)
+                ready.synchronize()
+
+            replay_ms = timed_stats_ms(replay, reps=SERVE_REPS)["p50_ms"]
+            if runner.jit_trace_count() != traces:
+                raise AssertionError(f"serve bucket {b}: a timed forward"
+                                     " captured instead of replaying")
+            row = dict(
+                replay_ms=replay_ms,
+                eager_ms=timed_stats_ms(eager, reps=SERVE_REPS)["p50_ms"],
+                staging_ms=timed_stats_ms(stage, reps=SERVE_REPS)["p50_ms"],
+                padded_rows_max_abs_err=pad_err,
+                p50_ms=waves[b]["p50_ms"], p95_ms=waves[b]["p95_ms"],
+                imgs_per_s=waves[b]["imgs_per_s"],
+                batches=waves[b]["batches"],
+                slo_us_model=waves[b]["slo_us"],
+                launches=entry.plan.n_launches(),
+            )
+            out[str(b)] = row
+            print(f"serve bucket {b} " + json.dumps(row), flush=True)
+        return out
+
+    # -- bf16, deadlines, faults, the front end, the CLI --------------------
+
+    def bf16(self) -> dict:
+        eng = self.engine(compute_dtype="bfloat16")
+        xs = [self.images(1, 200 + i) for i in range(8)]
+        results = self.counted(eng, lambda: eng.serve(xs), "bf16")
+        if {r.bucket for r in results} != {8}:
+            raise AssertionError("serve bf16: not one bucket-8 batch")
+        return dict(logits_max_abs_err=self.check(results, xs, "bf16",
+                                                  dtype="bfloat16"),
+                    launches=self.launches["bf16"])
+
+    @staticmethod
+    def _slow():
+        from repro_torch.robust.faults import FaultInjector
+
+        inj = FaultInjector(seed=0)
+        inj.slow_launch(SERVE_DELAY_S, times=10_000)
+        return inj
+
+    def deadlines(self) -> dict:
+        """Warm a deadline-aware engine (clean, then slow launches, so its
+        calibration maps the model's SLOs to this card's walls); then a
+        burst of single images with a deadline of 5.2 slow batches: some
+        are shed typed at admission, and every admitted one completes by
+        its deadline or ends typed."""
+        from repro_torch.robust.errors import DeadlineExceeded
+        from repro_torch.robust.faults import inject
+
+        eng = self.engine(deadline_aware=True, shed_margin=1.6)
+        for b in SERVE_BUCKETS:
+            eng.serve([self.images(b, 300 + b)])
+        with inject(injector=self._slow()):
+            for rep in range(2):
+                for b in SERVE_BUCKETS:
+                    eng.serve([self.images(b, 310 + 10 * rep + b)])
+        deadline_us = 5.2 * SERVE_DELAY_S * 1e6
+        xs = [self.images(1, 400 + i) for i in range(SERVE_BURST)]
+
+        def burst():
+            with inject(injector=self._slow()):
+                ids = [eng.submit(x, deadline_us=deadline_us) for x in xs]
+                eng.drain()
+            return [eng.results[i] for i in ids]
+
+        results = self.counted(eng, burst, "deadlines")
+        done = [(r, x) for r, x in zip(results, xs) if r.ok]
+        typed = [r for r in results if not r.ok
+                 and isinstance(r.error, DeadlineExceeded)]
+        shed = [r for r in typed if "eta_us" in r.error.context]
+        late = [r for r, _ in done if r.latency_ms * 1e3 > deadline_us]
+        if len(done) + len(typed) != len(results) or not shed or late:
+            raise AssertionError(
+                f"serve deadlines: {len(done)} done ({len(late)} late),"
+                f" {len(typed)} typed ({len(shed)} shed) of {len(results)}")
+        self.check([r for r, _ in done], [x for _, x in done], "deadlines")
+        return dict(completed=len(done), shed=len(shed),
+                    expired=len(typed) - len(shed),
+                    deadline_ms=deadline_us / 1e3,
+                    max_latency_ms=max(r.latency_ms for r, _ in done),
+                    launches=self.launches["deadlines"])
+
+    def inject_modes(self) -> dict:
+        """Each of the CLI's ``INJECT_MODES`` through an engine with breaker
+        1 and watchdog 3 (and the output sentinel for ``poison``), as the
+        CLI arms them: a clean wave, then the same wave with the fault
+        armed; every request ends in a result or a typed error, and the
+        launches follow the routes the batches took."""
+        from repro_torch.net.serve import INJECT_MODES, _armed_injector
+        from repro_torch.robust.errors import RobustError
+        from repro_torch.robust.faults import inject
+
+        out = {}
+        xs = [self.images(1 + i % 4, 500 + i) for i in range(8)]
+        for mode in INJECT_MODES:
+            eng = self.engine(breaker_threshold=1, breaker_cooldown_s=0.0,
+                              watchdog_factor=3.0,
+                              output_sentinel=mode == "poison")
+            self.check(eng.serve(xs), xs, f"inject {mode} wave 1")
+
+            def wave2(eng=eng, mode=mode):
+                with inject(injector=_armed_injector(mode, 0, 1)) as inj:
+                    return eng.serve(xs), inj
+
+            results, inj = self.counted(eng, wave2, f"inject {mode}")
+            if any(not r.ok and not isinstance(r.error, RobustError)
+                   for r in results):
+                raise AssertionError(f"serve inject {mode}: untyped end")
+            ok = [(r, x) for r, x in zip(results, xs) if r.ok]
+            self.check([r for r, _ in ok], [x for _, x in ok],
+                       f"inject {mode}")
+            res = eng.summary()["resilience"]
+            cycled = [s for s in res["breakers"].values()
+                      if s["opens"] >= 1 and s["state"] == "closed"]
+            held = {
+                "slow_launch": res["watchdog_trips"] >= 1 and bool(cycled),
+                "stage_fail": res["failed"] >= 1
+                and len(ok) == len(xs) - res["failed"],
+                "poison": res["sentinel_trips"] >= 1 and len(ok) == len(xs),
+                "stall": res["stalls"] == 3 and len(ok) == len(xs),
+            }[mode]
+            if not held or not inj.fired:
+                raise AssertionError(f"serve inject {mode}: {res}")
+            out[mode] = dict(
+                completed=len(ok), failed=len(xs) - len(ok),
+                fired=len(inj.fired),
+                routes={f"{b}/{r}": n for (b, r), n in
+                        sorted(eng.route_batches.items())},
+                resilience={k: v for k, v in res.items() if k != "breakers"},
+                breakers=res["breakers"],
+                launches=self.launches[f"inject {mode}"],
+            )
+            print(f"serve inject {mode} " + json.dumps(out[mode]), flush=True)
+        return out
+
+    def frontend(self) -> dict:
+        """4 producer threads x 8 requests through ``ServingFrontend``:
+        every handle resolves exactly once, with its own rows' logits."""
+        import threading
+
+        from repro_torch.net.frontend import ServingFrontend
+
+        eng = self.engine()
+        got, lock, errors = {}, threading.Lock(), []
+
+        def producer(tid, fe):
+            try:
+                for i in range(8):
+                    x = self.images(1 + (tid + i) % 2, 600 + 10 * tid + i)
+                    r = fe.submit(x).result(timeout=300.0)
+                    with lock:
+                        got.setdefault(r.id, []).append((r, x))
+            except Exception as e:  # surfaced below
+                errors.append(e)
+
+        def hammer():
+            with ServingFrontend(eng) as fe:
+                threads = [threading.Thread(target=producer, args=(t, fe))
+                           for t in range(4)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=300.0)
+                if any(t.is_alive() for t in threads):
+                    raise AssertionError("serve frontend: a producer hangs")
+
+        t0 = time.perf_counter()
+        self.counted(eng, hammer, "frontend")
+        wall_s = time.perf_counter() - t0
+        if errors or len(got) != 32 or any(len(v) != 1 for v in got.values()):
+            raise AssertionError(f"serve frontend: {len(got)} results,"
+                                 f" errors {errors}")
+        pairs = [v[0] for v in got.values()]
+        err = self.check([r for r, _ in pairs], [x for _, x in pairs],
+                         "frontend")
+        return dict(resolved=len(got), logits_max_abs_err=err,
+                    wall_s=wall_s, launches=self.launches["frontend"])
+
+    def cli(self) -> dict:
+        """``python -m repro_torch.net.serve --model resnet18 --requests
+        32`` twice as subprocesses on the card: the dry stream, and a slow
+        launch with breaker 1 and watchdog 3; both exit 0 with wave 2
+        recompiling nothing."""
+        self.torch.cuda.empty_cache()  # the subprocesses share the card
+        out = {}
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        for name, extra in (("dry_stream", ["--dry-stream"]),
+                            ("slow_launch", ["--inject", "slow_launch",
+                                             "--breaker", "1",
+                                             "--watchdog", "3"])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.net.serve", "--model",
+                 "resnet18", "--requests", "32", *extra],
+                cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=600,
+            )
+            for line in proc.stdout.splitlines():
+                print(f"serve cli {name}| " + line, flush=True)
+            if proc.returncode != 0:
+                raise AssertionError(f"serve cli {name} exited"
+                                     f" {proc.returncode}:"
+                                     f" {proc.stderr[-4000:]}")
+            if "wave 2: +0 plans, +0 jit traces" not in proc.stdout:
+                raise AssertionError(f"serve cli {name}: wave 2 recompiled")
+            if name == "slow_launch" and "watchdog_trips=1" not in proc.stdout:
+                raise AssertionError("serve cli slow_launch: no watchdog trip")
+            out[name] = dict(rc=proc.returncode, s=time.perf_counter() - t0)
+        return out
+
+    def run(self) -> dict:
+        self.summary["waves"] = self.waves()
+        self.summary["buckets"] = self.buckets()
+        self.summary["bf16"] = self.bf16()
+        self.summary["deadlines"] = self.deadlines()
+        self.summary["inject"] = self.inject_modes()
+        self.summary["frontend"] = self.frontend()
+        self.summary["cli"] = self.cli()
+        print("serve launches " + json.dumps(self.launches), flush=True)
+        for k in ("bf16", "deadlines", "frontend", "cli"):
+            print(f"serve {k} " + json.dumps(self.summary[k]), flush=True)
+        return self.summary
+
+
+def _eager_forward(x, params, plan, dtype):
+    """The forward issued launch by launch from Python, with no CUDA graph:
+    what a replay is held against, bit for bit."""
+    from repro_torch.core.executor import full_fp32
+    from repro_torch.net.runner import _forward
+
+    with full_fp32():
+        return _forward(x, params, plan=plan, end_skip=True, cdt=dtype)
+
+
+def _forward_ms(run, *, eager: bool = False) -> float:
     """Median host time of a whole forward after a warm-up, each ended by
-    a synchronize (``timed_stats_ms``, the ops phase's timer too)."""
-    from repro_torch.net.runner import run_network
+    a synchronize (``timed_stats_ms``, the ops phase's timer too): the
+    compiled forward (a replay of its captured CUDA graph), or with
+    ``eager`` the forward issued launch by launch."""
+    from repro_torch.net.runner import jit_trace_count, run_network
     from repro_torch.obs.stats import timed_stats_ms
 
-    return timed_stats_ms(
+    if eager:
+        return timed_stats_ms(
+            lambda: _eager_forward(run["x"], run["prepared"], run["plan"],
+                                   run["dtype"]),
+            reps=OPS_REPS,
+        )["p50_ms"]
+    traces = jit_trace_count()
+    ms = timed_stats_ms(
         lambda: run_network(run["x"], run["prepared"], plan=run["plan"]),
         reps=OPS_REPS,
     )["p50_ms"]
+    if jit_trace_count() != traces:
+        raise AssertionError(f"{run['key']}: a timed forward captured"
+                             " instead of replaying its graph")
+    return ms
 
 
 def print_build_report(reports, fc, device) -> None:
@@ -1643,11 +2136,17 @@ def main(argv=None) -> int:
         smoke.phase_pyramids()
         counts = smoke.phase_end_to_end()
         sop = smoke.phase_sop()
+        # phase 3's captured forwards give their memory back for lm's peak
+        from repro_torch.net.runner import clear_compiled_cache
+
+        clear_compiled_cache()
+        torch.cuda.empty_cache()
         lm = Lm(torch, device)
         ssd = lm.run()
         with tempfile.TemporaryDirectory() as tmp:
             ops = Ops(smoke, Path(tmp) if args.out is None
                       else args.out.parent).run()
+        serve = Serve(smoke).run()
         kernels = []
         for k in fc.KERNELS:
             st = smoke.stats[k.symbol]
@@ -1674,6 +2173,7 @@ def main(argv=None) -> int:
                 sop=smoke.sop_rows,
                 lm=lm.summary,
                 ops=ops,
+                serve=serve,
                 seconds=time.perf_counter() - t0,
             ), indent=1))
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -347,6 +347,64 @@ def grid_pipeline_timeline(
     return segs
 
 
+# Modeled host->device staging rate of the serving input stage, in bytes per
+# cycle of the 100 MHz model (1.6 GB/s, a quarter of
+# program.HBM_BYTES_PER_CYCLE).  Only the ratio to compute matters: it sets
+# how large a bucket's host->device input copy is relative to the pyramid
+# cycles the double-buffered stage hides it behind.  A model, not the H100's
+# PCIe rate.
+HOST_BYTES_PER_CYCLE = 16
+
+
+def host_staging_cycles(nbytes: int) -> int:
+    """Cycles one bucket's host->device input copy occupies the staging
+    interface (:data:`HOST_BYTES_PER_CYCLE`) — the quantity the serving
+    engine's double-buffered input stage overlaps with the previous
+    bucket's compute."""
+    return -(-nbytes // HOST_BYTES_PER_CYCLE)
+
+
+def serve_stream_cycles(
+    batches: int, compute: int, staging: int, *, double_buffered: bool
+) -> int:
+    """Latency of a stream of ``batches`` equal buckets through the serving
+    engine given per-bucket ``compute`` cycles and host->device input
+    ``staging`` cycles — the serving-level twin of
+    :func:`grid_pipeline_cycles`.
+
+    Serial (``double_buffered=False``): every bucket blocks on its own input
+    copy — ``(staging + compute) * batches``.
+
+    Double-buffered: bucket ``n+1``'s copy is issued (on a side stream)
+    while bucket ``n`` computes, so after bucket 0's exposed fill the stream
+    runs at the steady-state period ``max(compute, staging)``:
+    ``staging + compute + (batches - 1) * max(compute, staging)``.  The
+    saving over serial is ``(batches - 1) * min(compute, staging)`` >= 0.
+    """
+    if batches <= 0:
+        return 0
+    if not double_buffered or batches == 1:
+        return batches * (staging + compute)
+    return staging + compute + (batches - 1) * max(compute, staging)
+
+
+def queue_delay_cycles(batches: int, compute: int, staging: int) -> int:
+    """Modeled cycles a newly admitted request waits behind ``batches``
+    already-queued bucket executions before its own bucket can start.
+
+    Under the double-buffered steady state each queued bucket occupies the
+    engine for ``max(compute, staging)`` cycles (the stream period of
+    :func:`serve_stream_cycles`), so the wait is ``batches`` periods.  The
+    serving engine's admission control compares this (plus the request's
+    own bucket SLO) against the request's deadline: when the modeled wait
+    already blows the deadline, admitting the request only wastes a launch
+    on a result nobody can use — it is shed at the door instead.
+    """
+    if batches <= 0:
+        return 0
+    return batches * max(compute, staging)
+
+
 # ---------------------------------------------------------------------------
 # Baseline models (documented assumptions in module docstring)
 # ---------------------------------------------------------------------------

@@ -83,6 +83,15 @@
 // level's tiles (channel block outermost), which changes no value.  The
 // grid, every level's tile and its K-split come from the wrapper in the
 // descriptor.
+//
+// CUDA graphs.  The launch is the only stream work an entry point issues
+// (setting the kernel's shared-memory attribute is none), so a launch
+// issued while PyTorch captures the stream into a graph records the
+// cooperative kernel alone, and each replay relaunches it.  The grid comes
+// from the wrapper, which sized it by resident_blocks before any capture;
+// a grid too large for one wave is refused by the cooperative launch.  The
+// wrapper zeroes the barrier and the live flags with stream work before
+// every launch, so a replay starts from zero too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -775,10 +784,8 @@ template <typename T, bool KTILED>
 cudaError_t launch(const Desc& d, const void* x, const void* w, const void* b,
                    void* out, void* skip, void* scratch, void* partial,
                    void* live, void* bar, cudaStream_t stream) {
-  int resident = 0;
-  cudaError_t e = resident_blocks<T, KTILED>(&resident);
+  cudaError_t e = set_smem<T, KTILED>();
   if (e != cudaSuccess) return e;
-  if (d.grid > resident) return cudaErrorCooperativeLaunchTooLarge;
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   const T* bp = static_cast<const T*>(b);

@@ -11,7 +11,10 @@ starts one ``nvcc`` per source, all at once, and waits for all of them.
 :class:`CudaKernel` binds one C entry point of a library and counts its
 launches; every library exports ``<library>_error_string`` to turn a
 returned ``cudaError_t`` into text.  :func:`reset_launch_counts` zeroes the
-count of every kernel of the port.
+count of every kernel of the port.  A launch made while a CUDA stream is
+being captured into a graph runs nothing: inside :func:`recording_launches`
+the calling thread's launches are tallied instead of counted, and whoever
+replays the graph adds the tally with :func:`add_launches` per replay.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine without ``nvcc``.
@@ -19,12 +22,14 @@ the port on a machine without ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -135,7 +140,8 @@ class CudaKernel:
     count.
 
     ``launches`` is bumped once per successful :meth:`call` (and nowhere
-    else), so a run can show it went through the kernel."""
+    else, apart from :func:`add_launches` for each replay of a captured
+    graph), so a run can show it went through the kernel."""
 
     def __init__(self, library: str, symbol: str, argtypes: list,
                  replaces: str):
@@ -172,10 +178,39 @@ class CudaKernel:
             fn.argtypes = self.argtypes
             self._fn = fn
         self.check(self._fn(*args), "launch")
-        self.launches += 1
+        tally = getattr(_capture, "tally", None)
+        if tally is None:
+            self.launches += 1
+        else:
+            tally[self] = tally.get(self, 0) + 1
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     for k in KERNELS:
         k.launches = 0
+
+
+# per thread: the tally of launches recorded into a graph being captured
+_capture = threading.local()
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, this thread's launches are recorded into the
+    yielded ``{kernel: launches}`` tally and not counted: a launch issued
+    during a stream capture runs nothing until the graph is replayed."""
+    tally: dict[CudaKernel, int] = {}
+    prev = getattr(_capture, "tally", None)
+    _capture.tally = tally
+    try:
+        yield tally
+    finally:
+        _capture.tally = prev
+
+
+def add_launches(tally: dict) -> None:
+    """Count one replay of a captured graph whose capture recorded
+    ``tally``: each kernel's launches go up by its recorded launches."""
+    for kernel, n in tally.items():
+        kernel.launches += n

@@ -5,9 +5,22 @@ a :class:`~repro_torch.net.partition.PartitionPlan` as a sequence of
 fused-pyramid launches (one per chosen pyramid) stitched together with the
 plain PyTorch ops the plan left outside pyramids: residual adds, standalone
 activations, global pooling, flatten, and the dense classifier head.  The
-reference compiles the whole forward with ``jax.jit``; PyTorch runs it
-eagerly, one kernel launch per pyramid.  The per-launch END skip flag maps
-are returned alongside the logits.
+per-launch END skip flag maps are returned alongside the logits.
+
+The compiled forward.  The reference compiles the whole forward with
+``jax.jit``, one executable per (plan, input shape, dtype), and counts the
+traces (``jit_trace_count``).  Here the counterpart of that executable is a
+CUDA graph: on a CUDA tensor the first forward of a key runs eagerly (which
+builds the kernel libraries and warms cuBLAS and cuDNN outside any
+capture), then the same forward is captured into a ``torch.cuda.CUDAGraph``
+with a static input; every later forward of the key copies its input into
+the static one and replays the graph, so the host work of every launch
+(argument checks, ``prepare_launch``, the ``ctypes`` calls) is paid once.
+The key is (plan, input shape, dtype, device, ``end_skip``, compute dtype,
+the identity of every params tensor), kept in a small LRU whose entries die
+with their params; a capture counts one trace.  On the CPU a miss only records the key and counts the trace,
+and the forward runs eagerly every time, which keeps the reference's
+accounting.  A capture that fails raises; nothing falls back.
 
 ``reference_network`` is the monolithic oracle: the same graph executed
 node by node with full intermediate feature maps.  ``run_network`` must
@@ -25,13 +38,17 @@ Observed and guarded forwards (DESIGN.md §12, §13): under
 ``repro_torch.obs.tracing()`` each launch is timed (CUDA events on a card)
 and recorded as a span; under ``repro_torch.robust.guarding()`` the forward
 runs :func:`repro_torch.robust.degrade.run_network_guarded` — preflight,
-per-launch sentinels and the degradation ladder.  The reference's
-``jit_trace_count`` retrace counter comes with the serving slice.
+per-launch sentinels and the degradation ladder.  Both stay eager, as in
+the reference, and count no trace.
 """
 
 from __future__ import annotations
 
+import threading
 import time
+import weakref
+from collections import OrderedDict
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -40,6 +57,7 @@ from repro_torch.core import resolve_device
 from repro_torch.core.cycle_model import DEFAULT_PARAMS
 from repro_torch.core.dtypes import canonical_dtype, torch_dtype
 from repro_torch.core.executor import conv2d_nhwc, full_fp32, maxpool_nhwc
+from repro_torch.kernels import build
 from repro_torch.kernels.fused_conv.ops import flatten_weights, fused_pyramid
 from repro_torch.obs.trace import LaunchSpan, SpanTimer, device_label, get_tracer
 from repro_torch.robust.errors import PreflightError
@@ -327,6 +345,142 @@ def _run_network_traced(x, params, tracer, *, plan, end_skip, cdt):
     return logits, skips
 
 
+# Retrace accounting of the compiled forward, as the reference counts its
+# jit traces: one per new key (a CUDA-graph capture on a card, a recorded
+# key on the CPU).  ``tests/test_torch_serve.py`` holds it against the
+# reference's counts.
+_JIT_STATS = {"traces": 0}
+# live compiled forwards; an evicted entry drops its graph, its private
+# memory pool and its static tensors.  An entry holds its params tensors
+# weakly: when one of them dies, its weak reference puts the entry's key on
+# ``_DEAD`` and the next cache access drops the entry, before the dead
+# tensor's id can key a lookup again.  So a graph lives no longer than the
+# params its kernels read (a serving engine's evicted plan entry, say).
+COMPILED_CACHE_SIZE = 16
+_COMPILED: OrderedDict[tuple, _Compiled] = OrderedDict()
+_COMPILED_LOCK = threading.Lock()
+_DEAD: list[tuple] = []
+
+
+def _purge_dead() -> None:
+    """Drop the entries whose params died (the caller holds the lock)."""
+    while _DEAD:
+        _COMPILED.pop(_DEAD.pop(), None)
+
+
+def jit_trace_count() -> int:
+    """Process-lifetime count of compiled-forward traces (captures)."""
+    return _JIT_STATS["traces"]
+
+
+def reset_jit_trace_count() -> None:
+    """Zero the trace counter (the compiled cache itself is untouched —
+    re-running a known key after a reset still counts 0 new traces)."""
+    _JIT_STATS["traces"] = 0
+
+
+def compiled_cache_info() -> dict:
+    """``{"currsize", "maxsize"}`` of the compiled-forward LRU."""
+    with _COMPILED_LOCK:
+        _purge_dead()
+        return {"currsize": len(_COMPILED), "maxsize": COMPILED_CACHE_SIZE}
+
+
+def clear_compiled_cache() -> None:
+    """Drop every compiled forward (graphs, pools and static tensors)."""
+    with _COMPILED_LOCK:
+        _COMPILED.clear()
+        _DEAD.clear()
+
+
+@dataclass
+class _Compiled:
+    """One compiled forward.  ``keep`` holds the plan (so its id in the
+    key stays its own) and weak references to the keyed params tensors,
+    whose deaths drop the entry.  On the CPU only ``keep`` is set."""
+
+    keep: tuple
+    graph: object = None  # torch.cuda.CUDAGraph
+    static_x: torch.Tensor | None = None
+    logits: torch.Tensor | None = None
+    skips: dict | None = None
+    launches: dict | None = None  # {kernel: launches} of one replay
+
+    def replay(self, x: torch.Tensor):
+        """Copy ``x`` into the static input, replay on the current stream,
+        and return clones of the static results: the next replay
+        overwrites them."""
+        self.static_x.copy_(x)
+        self.graph.replay()
+        build.add_launches(self.launches)
+        return self.logits.clone(), {k: v.clone() for k, v in self.skips.items()}
+
+
+def _keyed_tensors(params: Params) -> tuple:
+    """Every tensor of ``params``, in key order."""
+    return tuple(
+        t for _, v in sorted(params.items())
+        for t in (v if isinstance(v, tuple) else (v,))
+    )
+
+
+def _compiled_key(x, tensors, plan, end_skip, cdt) -> tuple:
+    return (id(plan), tuple(x.shape), x.dtype, x.device, end_skip, cdt,
+            tuple(map(id, tensors)))
+
+
+def _capture(x, params, plan, end_skip, cdt, keep) -> _Compiled:
+    """Capture the forward of ``x``'s key into a CUDA graph.  The caller
+    has run it eagerly once, so the libraries are built, the occupancy
+    queries kept and cuBLAS/cuDNN warm; the capture runs nothing, and its
+    launches are recorded for the replays rather than counted."""
+    static_x = x.clone()
+    graph = torch.cuda.CUDAGraph()
+    with build.recording_launches() as launches:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            logits, skips = _forward(
+                static_x, params, plan=plan, end_skip=end_skip, cdt=cdt
+            )
+    return _Compiled(
+        keep=keep, graph=graph, static_x=static_x, logits=logits,
+        skips=skips, launches=launches,
+    )
+
+
+def _run_network_compiled(x, params, *, plan, end_skip, cdt):
+    """The untraced, unguarded forward through the compiled cache."""
+    tensors = _keyed_tensors(params)
+    key = _compiled_key(x, tensors, plan, end_skip, cdt)
+    with _COMPILED_LOCK:
+        _purge_dead()
+        entry = _COMPILED.get(key)
+        if entry is not None:
+            _COMPILED.move_to_end(key)
+    if entry is not None:
+        if entry.graph is None:
+            return _forward(x, params, plan=plan, end_skip=end_skip, cdt=cdt)
+        with torch.cuda.device(x.device):
+            return entry.replay(x)
+    out = _forward(x, params, plan=plan, end_skip=end_skip, cdt=cdt)
+    keep = (plan, tuple(
+        weakref.ref(t, lambda _, key=key: _DEAD.append(key)) for t in tensors
+    ))
+    if x.is_cuda:
+        with torch.cuda.device(x.device):
+            entry = _capture(x, params, plan, end_skip, cdt, keep=keep)
+    else:
+        entry = _Compiled(keep=keep)
+    tracer = get_tracer()
+    if tracer.enabled:
+        tracer.bump("run_network_jit_trace")
+    with _COMPILED_LOCK:
+        _JIT_STATS["traces"] += 1
+        _COMPILED[key] = entry
+        while len(_COMPILED) > COMPILED_CACHE_SIZE:
+            _COMPILED.popitem(last=False)
+    return out
+
+
 def run_network(
     x: torch.Tensor,
     params: Params,
@@ -349,6 +503,11 @@ def run_network(
     ``(B, alpha, alpha, Q)`` int32 END-cascade flag map.  Aggregate with
     :func:`skip_fractions`.
 
+    Neither traced nor guarded, the forward goes through the compiled
+    cache (module docstring): a CUDA tensor replays the key's captured
+    graph and gets clones of its results, so the caller may keep them
+    across forwards.  One thread at a time may replay a key.
+
     With a guard installed (``repro_torch.robust.guarding()``) the forward
     runs :func:`repro_torch.robust.degrade.run_network_guarded` instead:
     preflight, a numeric sentinel read on the host per launch, and the
@@ -369,7 +528,9 @@ def run_network(
         cdt = canonical_dtype(plan.compute_dtype if dtype is None else dtype)
         tracer = get_tracer()
         if not tracer.enabled:
-            return _forward(x, params, plan=plan, end_skip=end_skip, cdt=cdt)
+            return _run_network_compiled(
+                x, params, plan=plan, end_skip=end_skip, cdt=cdt
+            )
         return _run_network_traced(
             x, params, tracer, plan=plan, end_skip=end_skip, cdt=cdt
         )

@@ -18,7 +18,8 @@ Pieces:
 * :mod:`repro_torch.obs.report` — the model-vs-measured drift report.
 * :mod:`repro_torch.obs.explain` — ``python -m repro_torch.obs.explain``:
   the partition plan as a per-launch table, optionally run traced and
-  guarded on the card.
+  guarded on the card; and ``serve_table``, the serving engine's
+  bucket/SLO/throughput table (``python -m repro_torch.net.serve``).
 """
 
 from .stats import percentile, timed_stats_ms

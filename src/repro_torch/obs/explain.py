@@ -71,6 +71,78 @@ def plan_table(plan, vmem_budget: int, out=print) -> None:
     )
 
 
+def serve_table(summary: dict, out=print) -> None:
+    """Render a serving engine's
+    :meth:`~repro_torch.net.serve.ServingEngine.summary` as the
+    bucket/SLO/throughput table: one row per bucket, modeled columns
+    (launches, SLO, steady-state, at the cycle model's 100 MHz) next to
+    measured (p50/p95, imgs/s), then the cache lines and — when the summary
+    carries CLI wave deltas — the per-wave plan/compile reuse proof.  The
+    same lines as the reference's for the same summary dict."""
+    out(
+        f"serving {summary['model']} dtype={summary['compute_dtype']}"
+        + (" [guarded]" if summary.get("guarded") else "")
+        + f": {summary['completed']} completed, {summary['rejected']}"
+        f" rejected, {summary['imgs_per_s']:,.1f} imgs/s overall"
+    )
+    out(
+        f"{'bucket':>6} {'batches':>7} {'reqs':>5} {'imgs':>5} "
+        f"{'launches':>8} {'slo_us':>10} {'steady_us':>10} "
+        f"{'p50_ms':>9} {'p95_ms':>9} {'imgs/s':>9}"
+    )
+    for row in summary["buckets"]:
+        out(
+            f"{row['bucket']:>6} {row['batches']:>7} {row['requests']:>5} "
+            f"{row['images']:>5} "
+            f"{row.get('launches', '-'):>8} "
+            + (f"{row['slo_us']:>10,.1f} " if "slo_us" in row
+               else f"{'-':>10} ")
+            + (f"{row['steady_us']:>10,.1f} " if "steady_us" in row
+               else f"{'-':>10} ")
+            + f"{row['p50_ms']:>9,.2f} {row['p95_ms']:>9,.2f} "
+            f"{row['imgs_per_s']:>9,.1f}"
+        )
+    cache = summary["cache"]
+    out(
+        f"plan cache: serve {cache['serve']['hits']}h/"
+        f"{cache['serve']['misses']}m/{cache['serve']['evictions']}e "
+        f"({cache['serve']['currsize']}/{cache['serve']['maxsize']}), "
+        f"partition {cache['partition']['hits']}h/"
+        f"{cache['partition']['misses']}m/"
+        f"{cache['partition']['evictions']}e, "
+        f"jit traces {cache['jit_traces']}"
+    )
+    res = summary.get("resilience")
+    if res is not None:
+        counters = {k: v for k, v in res.items() if k != "breakers" and v}
+        breakers = res.get("breakers") or {}
+        active = {
+            b: s for b, s in breakers.items()
+            if s["transitions"] or s["state"] != "closed"
+        }
+        if counters or active:
+            out(
+                "resilience: "
+                + ", ".join(f"{k}={v}" for k, v in counters.items())
+                if counters else "resilience:"
+            )
+            for b, s in sorted(active.items(), key=lambda kv: int(kv[0])):
+                pin = f" pinned={s['pinned_rung']}" if s["pinned_rung"] else ""
+                out(
+                    f"  breaker bucket {b}: {s['state']}"
+                    f" ({s['opens']} opens, {s['transitions']} transitions,"
+                    f" {s['failures']}/{s['threshold']} failures){pin}"
+                )
+    for i, wave in enumerate(summary.get("waves", []), start=1):
+        out(
+            f"wave {i}: +{wave['serve_misses']} plans, "
+            f"+{wave['jit_traces']} jit traces, "
+            f"{wave['serve_hits']} serve cache hits, "
+            f"{wave['partition_misses']} partition misses "
+            f"({wave['wall_s']:.2f}s)"
+        )
+
+
 def fallback_table(report, out=print) -> None:
     """Render a guarded run's :class:`~repro_torch.robust.degrade.RunReport`:
     one row per fallback event, plus the degraded-plan detail (the chained

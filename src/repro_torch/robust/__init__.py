@@ -39,6 +39,7 @@ from .errors import (
     PlanError,
     PreflightError,
     RobustError,
+    WatchdogError,
 )
 
 _LAZY = {
@@ -51,6 +52,7 @@ _LAZY = {
     "FallbackEvent": "degrade",
     "RunReport": "degrade",
     "run_network_guarded": "degrade",
+    "run_network_eager": "degrade",
     "FaultInjector": "faults",
     "corrupt_params": "faults",
     "get_injector": "faults",
@@ -83,6 +85,7 @@ __all__ = [
     "PreflightError",
     "RobustError",
     "RunReport",
+    "WatchdogError",
     "check_request",
     "corrupt_params",
     "get_guard",
@@ -90,6 +93,7 @@ __all__ = [
     "guarding",
     "inject",
     "preflight",
+    "run_network_eager",
     "run_network_guarded",
     "sentinel_stats",
 ]

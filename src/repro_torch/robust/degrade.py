@@ -15,7 +15,9 @@ and finite params.  The rungs, top to bottom:
    kernel's plain PyTorch version (``fused_pyramid(..., plain=True)``).
    It takes the reference's ``interpret=True`` rung: slower, but it shares
    no code with the CUDA kernel.  This rung is the only way the plain
-   version runs on a CUDA tensor, and it is always recorded.  A genuine
+   version runs on a CUDA tensor, and it is always recorded (here as a
+   :class:`FallbackEvent`; a serving engine whose breaker pins a key to
+   it runs :func:`run_network_eager` and records the route).  A genuine
    build or launch error of the kernel is not a rung: it propagates, so a
    broken kernel fails loudly instead of being hidden behind its plain
    version.
@@ -176,6 +178,12 @@ def _skip_fracs(sub_skips: dict) -> dict[str, list[float]]:
         name: s.double().mean(dim=(0, 1, 2)).tolist()
         for name, s in sub_skips.items()
     }
+
+
+def _eager(call):
+    """The eager rung: re-issue a launch through its kernel's plain
+    version (the one place the port asks for it on a CUDA tensor)."""
+    return call(plain=True)
 
 
 def run_network_guarded(
@@ -344,7 +352,7 @@ def run_network_guarded(
             try:
                 injector.fire("compile", pyr.name)
                 injector.fire("run", pyr.name)
-                y, skip = call(plain=True)
+                y, skip = _eager(call)
                 record(FallbackEvent(
                     launch=pyr.name, rung="eager",
                     reason=f"launch failed: {first}",
@@ -401,3 +409,22 @@ def run_network_guarded(
         )
     guard.last_report = report
     return logits, skips
+
+
+def run_network_eager(x, params, *, plan, end_skip: bool = True,
+                      dtype: str | None = None):
+    """The plan's forward with every launch on the ``eager`` rung: each
+    pyramid through its kernel's plain PyTorch version, on any device —
+    the reference's ``run_network(..., interpret=True)``.  Only a serving
+    engine whose circuit breaker pinned a key to ``eager`` runs it, and it
+    records that route for every batch it serves so."""
+    from repro_torch.core.dtypes import canonical_dtype
+    from repro_torch.core.executor import full_fp32
+    from repro_torch.net.runner import _forward
+
+    cdt = canonical_dtype(plan.compute_dtype if dtype is None else dtype)
+    with full_fp32():
+        return _forward(
+            x, params, plan=plan, end_skip=end_skip, cdt=cdt,
+            launch_wrapper=lambda pyr, call, x_in: _eager(call),
+        )

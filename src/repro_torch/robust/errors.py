@@ -18,6 +18,10 @@ instead of bare asserts, so callers can dispatch on *what went wrong*:
   ``FloatingPointError``.
 * :class:`DeadlineExceeded` — a serving request missed its deadline.
   Subclasses ``TimeoutError``.
+* :class:`WatchdogError` — a serving batch ran over its watchdog's limit
+  with no injected fault to blame.  Subclasses ``TimeoutError``.  The
+  port's own: the reference's engine serves such a batch and counts a
+  breaker failure, which on the port could pin the key to a plain version.
 * :class:`FaultInjected` — raised only by a deterministic fault harness;
   never by production code.
 
@@ -66,6 +70,11 @@ class NumericError(RobustError, FloatingPointError):
 class DeadlineExceeded(RobustError, TimeoutError):
     """A serving request's deadline passed before (or instead of) useful
     work."""
+
+
+class WatchdogError(RobustError, TimeoutError):
+    """A serving batch's wall exceeded its watchdog limit and no injected
+    fault fired in it; ``context`` names the bucket and both times."""
 
 
 class FaultInjected(RobustError, RuntimeError):

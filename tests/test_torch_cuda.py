@@ -10,6 +10,9 @@ tests/test_torch_cuda.py``.  This file imports no JAX, so it also runs on a
 machine where only PyTorch is installed.
 """
 
+import time
+
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -430,3 +433,373 @@ def test_sop_end_kernel_contract(cuda):
     assert tos.SOP_END.launches == before
     sop, cyc, det = tos.online_sop_end_kernel(x[:0], Y, 16)  # P = 0
     assert sop.shape == (0, 4) and tos.SOP_END.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the compiled forward (a captured CUDA graph per key) and serving on the card
+# ---------------------------------------------------------------------------
+
+
+def _vgg_b1(cuda):
+    """VGG-16 at 32 x 32, batch 1: 5 launches, one of them channel-tiled,
+    so a replay runs kernels A and B."""
+    graph = MODELS["vgg16"](input_size=32, num_classes=10)
+    master = init_network_params(graph, seed=0, device=cuda)
+    plan = auto_partition(graph, batch=1)
+    assert any(p.launch.c_tiles > 1 for p in plan.pyramids)
+    assert any(p.launch.c_tiles == 1 for p in plan.pyramids)
+    x = torch.randn((1, 32, 32, 3), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(2))
+    return graph, master, plan, prepare_network_params(plan, master), x
+
+
+def _counts():
+    return {k.symbol: k.launches for k in build.KERNELS}
+
+
+def _eager(x, params, plan):
+    from repro_torch.core.executor import full_fp32
+    from repro_torch.net.runner import _forward
+
+    with full_fp32():
+        return _forward(x, params, plan=plan, end_skip=True,
+                        cdt=plan.compute_dtype)
+
+
+def test_replays_are_bitwise_and_counted(cuda):
+    """One key captured, then replayed 20 times: every replay's logits and
+    skip maps equal the eager forward's bit for bit (the same kernels,
+    the same cuDNN and cuBLAS calls), each replay counts the plan's
+    launches of A and B, and the capture itself counts none."""
+    from repro_torch.net import runner
+
+    graph, master, plan, params, x = _vgg_b1(cuda)
+    runner.clear_compiled_cache()
+    runner.reset_jit_trace_count()
+    build.reset_launch_counts()
+    first, first_skips = run_network(x, params, plan=plan)  # eager + capture
+    torch.cuda.synchronize()
+    assert runner.jit_trace_count() == 1
+    assert _counts() == _plan_counts(plan)
+    want, want_skips = _eager(x, params, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(first, want)
+    build.reset_launch_counts()
+    for i in range(20):
+        xi = x if i % 2 == 0 else x.clone()  # the input is copied in
+        y, skips = run_network(xi, params, plan=plan)
+        assert torch.equal(y, want), i
+        assert all(torch.equal(skips[k], want_skips[k]) for k in want_skips)
+    torch.cuda.synchronize()
+    assert runner.jit_trace_count() == 1
+    assert _counts() == {k: 20 * v for k, v in _plan_counts(plan).items()}
+    # results handed out are clones: a later replay leaves them alone
+    other = torch.randn_like(x)
+    kept = y.clone()
+    run_network(other, params, plan=plan)
+    assert torch.equal(y, kept)
+    ref = reference_network(x, graph, master)
+    assert float((y - ref).abs().max()) <= _tol(ref, torch.float32)
+
+
+def test_capture_error_raises(cuda, monkeypatch):
+    """A forward that cannot be captured (here: a synchronisation inside
+    it) raises from run_network; nothing is cached or counted, and the next
+    capture works."""
+    from repro_torch.net import runner
+
+    graph, master, plan, params, x = _vgg_b1(cuda)
+    runner.clear_compiled_cache()
+    runner.reset_jit_trace_count()
+    head = runner._head_op
+
+    def syncing_head(*args, **kwargs):
+        torch.cuda.synchronize()
+        return head(*args, **kwargs)
+
+    monkeypatch.setattr(runner, "_head_op", syncing_head)
+    with pytest.raises(RuntimeError):
+        run_network(x, params, plan=plan)
+    assert runner.jit_trace_count() == 0
+    assert runner.compiled_cache_info()["currsize"] == 0
+    monkeypatch.setattr(runner, "_head_op", head)
+    y, _ = run_network(x, params, plan=plan)
+    y2, _ = run_network(x, params, plan=plan)
+    assert runner.jit_trace_count() == 1 and torch.equal(y, y2)
+
+
+def test_evicted_entry_frees_its_graph(cuda, monkeypatch):
+    import gc
+    import weakref
+
+    from repro_torch.net import runner
+
+    graph, master, plan, params, x = _vgg_b1(cuda)
+    monkeypatch.setattr(runner, "COMPILED_CACHE_SIZE", 1)
+    runner.clear_compiled_cache()
+    run_network(x, params, plan=plan)
+    (entry,) = runner._COMPILED.values()
+    refs = [weakref.ref(o) for o in (entry.graph, entry.static_x,
+                                     entry.logits)]
+    del entry
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(cuda)
+    run_network(x.repeat(2, 1, 1, 1), params, plan=plan)  # evicts batch 1
+    gc.collect()
+    assert runner.compiled_cache_info()["currsize"] == 1
+    assert all(r() is None for r in refs)
+    runner.clear_compiled_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda) < held
+
+
+def test_graph_dies_with_its_params(cuda):
+    """The compiled cache holds its params weakly: when the caller drops
+    them, the entry goes, and its graph, static tensors and pool with it."""
+    import gc
+    import weakref
+
+    from repro_torch.net import runner
+
+    graph, master, plan, params, x = _vgg_b1(cuda)
+    own = {k: v.clone() if isinstance(v, torch.Tensor)
+           else tuple(t.clone() for t in v) for k, v in params.items()}
+    runner.clear_compiled_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    run_network(x, own, plan=plan)
+    (entry,) = runner._COMPILED.values()
+    refs = [weakref.ref(o) for o in (entry.graph, entry.static_x,
+                                     entry.logits)]
+    del entry
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(cuda)
+    assert held > base
+    del own
+    gc.collect()
+    assert runner.compiled_cache_info()["currsize"] == 0
+    assert all(r() is None for r in refs)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda) < held
+
+
+def _lenet_engine(cuda, **cfg):
+    from repro_torch.net.serve import ServeConfig, ServingEngine
+
+    graph = MODELS["lenet"]()
+    master = init_network_params(graph, seed=0, device=cuda)
+    eng = ServingEngine(graph, master, ServeConfig(buckets=(1, 2, 4), **cfg),
+                        device=cuda)
+    return graph, master, eng
+
+
+def _lenet_images(rows, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((rows, 32, 32, 1), generator=gen).numpy()
+
+
+def test_staging_copy_is_ordered_before_the_replay(cuda, monkeypatch):
+    """The copy stream is held up by a 50 ms device spin before the
+    batch's copy: with the event the compute stream waits and the logits
+    are right; with the wait taken out the replay reads the buffer before
+    the copy lands and the logits are wrong — so the event is what orders
+    them."""
+    graph, master, eng = _lenet_engine(cuda)
+    eng.serve([_lenet_images(4, 0)])  # capture bucket 4, make the stream
+    assert eng._copy_stream is not None
+
+    def served(seed):
+        x = _lenet_images(4, seed)
+        with torch.cuda.stream(eng._copy_stream):
+            torch.cuda._sleep(100_000_000)
+        (res,) = eng.serve([x])
+        ref = reference_network(torch.from_numpy(x).to(cuda), graph, master)
+        return float(np.abs(res.logits - ref.cpu().numpy()).max()), ref
+
+    err, ref = served(1)
+    assert err <= _tol(ref, torch.float32)
+
+    def no_wait(staged):
+        staged.x.record_stream(torch.cuda.current_stream(cuda))
+
+    monkeypatch.setattr(eng, "_await_staging", no_wait)
+    err, ref = served(2)
+    assert err > _tol(ref, torch.float32)
+
+
+def test_engine_waves_replay_and_count(cuda):
+    """Two waves of the same stream: wave 1 captures one graph per bucket
+    used, wave 2 captures none and misses no plan; A's launches equal the
+    plan's times the batches served; every request within tolerance of
+    reference_network."""
+    from repro_torch.net import runner
+
+    graph, master, eng = _lenet_engine(cuda)
+    plan_launches = {b: eng._entry(b).plan.n_launches() for b in (1, 2, 4)}
+    stream = [_lenet_images(r, 10 + i) for i, r in enumerate((1, 2, 1, 3))]
+    runner.clear_compiled_cache()
+    runner.reset_jit_trace_count()
+    for wave in (1, 2):
+        build.reset_launch_counts()
+        misses = eng.cache_counters["misses"]
+        before = dict(eng.route_batches)
+        results = eng.serve(stream[:1]) + eng.serve(stream[1:])
+        torch.cuda.synchronize()
+        served = {k: v - before.get(k, 0) for k, v in eng.route_batches.items()}
+        assert set(r for _, r in served) == {"fused"}
+        want = sum(n * plan_launches[b] for (b, _), n in served.items())
+        assert _counts()[fc.PYRAMID.symbol] == want
+        if wave == 1:
+            buckets = {b for b, _ in served}
+            assert runner.jit_trace_count() == len(buckets)
+        else:
+            assert runner.jit_trace_count() == len(buckets)
+            assert eng.cache_counters["misses"] == misses
+        for x, res in zip(stream, results):
+            ref = reference_network(torch.from_numpy(x).to(cuda), graph,
+                                    master)
+            assert res.ok
+            assert float(np.abs(res.logits - ref.cpu().numpy()).max()) \
+                <= _tol(ref, torch.float32)
+
+
+def test_frontend_on_the_card(cuda):
+    """4 producer threads x 8 requests through the frontend, all CUDA work
+    on its drain thread: every handle resolves exactly once with its own
+    rows' logits."""
+    import threading
+
+    from repro_torch.net.frontend import ServingFrontend
+
+    graph, master, eng = _lenet_engine(cuda)
+    results, lock, errors = {}, threading.Lock(), []
+
+    def producer(tid):
+        try:
+            for i in range(8):
+                seed = 1000 + 100 * tid + i
+                h = fe.submit(_lenet_images(1 + i % 2, seed))
+                r = h.result(timeout=120.0)
+                with lock:
+                    results.setdefault(r.id, []).append((r, seed))
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    with ServingFrontend(eng) as fe:
+        threads = [threading.Thread(target=producer, args=(t,))
+                   for t in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120.0)
+        assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert len(results) == 32 and all(len(v) == 1 for v in results.values())
+    for ((r, seed),) in results.values():
+        x = _lenet_images(r.rows, seed)
+        ref = reference_network(torch.from_numpy(x).to(cuda), graph, master)
+        assert r.ok and float(np.abs(r.logits - ref.cpu().numpy()).max()) \
+            <= _tol(ref, torch.float32)
+
+
+def test_breaker_pins_the_eager_route_on_the_card(cuda):
+    """Two guarded batches whose launch takes the eager rung open the
+    breaker pinned to ``eager``: the third batch runs every pyramid through
+    its plain version on the card (no kernel launch) and stays right."""
+    from repro_torch.robust import FaultInjector
+
+    graph, master, eng = _lenet_engine(
+        cuda, guarded=True, breaker_threshold=2, breaker_cooldown_s=600.0)
+    xs = [_lenet_images(4, 40 + i) for i in range(3)]
+    inj = FaultInjector(seed=0)
+    build.reset_launch_counts()
+    with inject(injector=inj):
+        results = []
+        for i, x in enumerate(xs):
+            if i < 2:
+                inj.raise_at("run", times=1)
+            results += eng.serve([x])
+    torch.cuda.synchronize()
+    snap = eng.summary()["resilience"]["breakers"]["4"]
+    assert snap["state"] == "open" and snap["pinned_rung"] == "eager"
+    assert eng.route_batches == {(4, "fused"): 2, (4, "eager"): 1}
+    assert _counts()[fc.PYRAMID.symbol] == 0
+    for x, res in zip(xs, results):
+        ref = reference_network(torch.from_numpy(x).to(cuda), graph, master)
+        assert res.ok and float(np.abs(res.logits - ref.cpu().numpy()).max()) \
+            <= _tol(ref, torch.float32)
+
+
+def test_genuine_faults_stay_on_the_kernels_on_the_card(cuda, monkeypatch):
+    """Non-finite logits and a slow batch that no injected fault explains
+    fail their batches typed (``NumericError``, ``WatchdogError``) with the
+    sentinel, the watchdog and breaker 1 all on: the breaker stays closed,
+    every batch takes the fused route, and kernel A's launches are the
+    plan's for each of them — nothing is re-served from a plain version."""
+    from repro_torch.net import serve as tserve
+    from repro_torch.robust import NumericError, WatchdogError
+
+    graph, master, eng = _lenet_engine(
+        cuda, output_sentinel=True, watchdog_factor=3.0,
+        breaker_threshold=1, breaker_cooldown_s=600.0)
+    for i in range(3):  # capture bucket 4, then calibrate on replays
+        assert eng.serve([_lenet_images(4, 70 + i)])[0].ok
+    real, calls = tserve.run_network, []
+
+    def faulty(*args, **kwargs):
+        logits, skips = real(*args, **kwargs)
+        calls.append(1)
+        if len(calls) == 1:
+            logits = logits.clone()
+            logits[0, 0] = float("nan")
+        elif len(calls) == 2:
+            torch.cuda.synchronize()
+            time.sleep(0.5)
+        return logits, skips
+
+    monkeypatch.setattr(tserve, "run_network", faulty)
+    build.reset_launch_counts()
+    x = _lenet_images(4, 80)
+    (nan,) = eng.serve([x])
+    (slow,) = eng.serve([x])
+    (good,) = eng.serve([x])
+    torch.cuda.synchronize()
+    assert isinstance(nan.error, NumericError)
+    assert isinstance(slow.error, WatchdogError)
+    ref = reference_network(torch.from_numpy(x).to(cuda), graph, master)
+    assert good.ok and float(np.abs(good.logits - ref.cpu().numpy()).max()) \
+        <= _tol(ref, torch.float32)
+    snap = eng.summary()["resilience"]["breakers"]["4"]
+    assert snap["state"] == "closed" and snap["opens"] == 0
+    assert eng.route_batches == {(4, "fused"): 6}
+    assert _counts()[fc.PYRAMID.symbol] == 3 * eng._entry(4).plan.n_launches()
+
+
+def test_frontend_surfaces_a_capture_error_on_the_card(cuda, monkeypatch):
+    """A capture that fails on the drain thread (a synchronisation inside
+    the forward) ends the frontend's drain: every pending handle raises
+    that error, and so does a later submit; nothing falls back."""
+    from repro_torch.net import runner
+    from repro_torch.net.frontend import ServingFrontend
+
+    graph, master, eng = _lenet_engine(cuda)
+    runner.clear_compiled_cache()
+    head = runner._head_op
+
+    def syncing_head(*args, **kwargs):
+        torch.cuda.synchronize()
+        return head(*args, **kwargs)
+
+    monkeypatch.setattr(runner, "_head_op", syncing_head)
+    fe = ServingFrontend(eng)
+    handles = [fe.submit(_lenet_images(r, 90 + r)) for r in (2, 1, 4)]
+    with fe:
+        for h in handles:
+            with pytest.raises(RuntimeError):
+                h.result(timeout=120.0)
+        with pytest.raises(RuntimeError):
+            fe.submit(_lenet_images(1, 99))
+    assert runner.compiled_cache_info()["currsize"] == 0
+    assert eng.route_batches == {}
