@@ -9,21 +9,23 @@ The main path is the paper's contribution, a CNN forward through fused conv
 pyramids: the zoo graph (``repro_torch.net.graph``), the auto-partitioner's
 cuts (``repro_torch.net.partition.auto_partition``) and the plan-driven
 ``repro_torch.net.runner.run_network``, one hand-written CUDA pyramid kernel
-launch per pyramid; phase 6 runs it again traced and guarded.  The second path is the paper's other half, the
-digit-serial sum of products with Early Negative Detection
-(``repro_torch.kernels.online_sop.online_sop_end``) on VGG-16's first two
-conv layers.  The third is the Mamba-2 language model's prefill and decode,
-whose prefill runs the SSD chunk scan
-(``repro_torch.kernels.ssd_scan.ops.ssd_scan``) once per layer.  Phases,
-any failure exits non-zero:
+launch per pyramid; phase 7 runs it again traced and guarded.  The second
+path is the paper's other half, the digit-serial sum of products with Early
+Negative Detection (``repro_torch.kernels.online_sop.online_sop_end``) on
+VGG-16's first two conv layers.  The third is the Mamba-2 language model's
+prefill and decode, whose prefill runs the SSD chunk scan
+(``repro_torch.kernels.ssd_scan.ops.ssd_scan``) once per layer; the fourth
+is the Hymba-1.5B hybrid model's (attention and Mamba heads in every
+layer), whose prefill runs the same kernel once per layer.  Phases, any
+failure exits non-zero:
 
-1. build  — compile every kernel of the three paths from ``src/repro_torch/csrc``
+1. build  — compile every kernel of the four paths from ``src/repro_torch/csrc``
    (one nvcc per source, started together); print the card's name and
    power limit, torch, CUDA and nvcc versions, the pyramid kernels', the
    SOP kernel's and the SSD scan's ``ptxas`` lines (registers, stack,
    spills), the pyramid
    kernels' co-resident block count per dtype and the SSD scan's blocks a
-   SM per instance at the Mamba-2 model's (P, N, Q).
+   SM per instance at the Mamba-2 and Hymba models' (P, N, Q).
 2. pyramids — for every pyramid of the four plans below, the kernel against
    its plain PyTorch version on the card, on dense inputs and on sparse
    ones with negative-shifted biases (the END cascade): skip maps must be
@@ -75,7 +77,23 @@ any failure exits non-zero:
    through the kernel against 512 decode steps over the same prompt
    (``ssd_decode_step``, no kernel) within ``_recurrence_tol``; ``serve``
    at bf16 answering 4 requests.
-6. ops — phase 3's ResNet-18 f32 and VGG-16 f32 batch-1 forwards observed
+6. hybrid — Hymba-1.5B (``repro_torch.configs.hymba_1_5b``) at full
+   width and depth, random weights from a seed, through the same entry
+   points: phase lm's checked bf16 prefill of 4 x 4096 (chunked attention,
+   32 counted launches of the SSD kernel, every layer's result against
+   ``ssd_scan_plain``, layer 0 at f32 and with a slowly decaying state,
+   the kernel timed and bounded at Hymba's heads (H, P, N) = (50, 64, 16));
+   the bf16 prefill of 16 of the prefill_32k cell's 32 sequences of 32,768
+   tokens, counted and timed (tokens/s, peak memory, the SSD calls'
+   share); decode ms per
+   step at bf16, batch 4; ``serve`` at bf16 answering 4 requests; at f32,
+   one sequence of 4096 tokens through chunked attention against its first
+   2048 through dense attention, and 2 sequences of window + 64 tokens
+   prefilled against as many decode steps (every position, the window and
+   the attention caches in the decode path), each within
+   ``_recurrence_tol``; phi-4-mini at full width and 4 layers, f32, its
+   prefill of 2 x 1024 against 1024 decode steps.
+7. ops — phase 3's ResNet-18 f32 and VGG-16 f32 batch-1 forwards observed
    and guarded (``repro_torch.obs``, ``repro_torch.robust``): each traced
    three times (per forward a span per launch with a positive CUDA-event
    time on this card, logits and skip maps as the untraced forward's, the
@@ -100,7 +118,7 @@ any failure exits non-zero:
    ``python -m repro_torch.obs.explain --model resnet18 --run --guard
    --trace FILE`` as a subprocess.  Its launches go on an ``ops launches``
    line of their own.
-7. serve — ResNet-18 at full width (224x224x3, 1000 classes, phase 3's
+8. serve — ResNet-18 at full width (224x224x3, 1000 classes, phase 3's
    params) through the serving engine (``repro_torch.net.serve``,
    ``ServeConfig(buckets=(1, 2, 4, 8))``, f32): two waves of the same
    seeded stream of 24 requests of 1-3 images, every request's logits
@@ -122,14 +140,17 @@ any failure exits non-zero:
    as subprocesses, ``--dry-stream`` and ``--inject slow_launch
    --breaker 1 --watchdog 3``.  Its launches go on a ``serve launches``
    line of their own.
-8. results — one ``{"kernels": [...]}`` line (for the pyramid kernels
+9. results — one ``{"kernels": [...]}`` line (for the pyramid kernels
    ``launches`` sums the four forwards, ``launches_per_forward`` splits
    it, and every time sums the per-launch medians over the dense pyramids
    of the four plans; for the SOP kernel ``launches_per_layer`` splits
    the 2 and every time sums the two layers: the median of a layer's
    launch, or the sum of its 64 plain calls' single timed spans; for the
    SSD kernel ``launches`` is the bf16 prefill's 48 and every time covers
-   its 48 layers), then the ``{"ok": true, "device": ...}`` line last.
+   its 48 layers; a second entry of the SSD kernel, ``ssd_scan@hymba_1_5b``,
+   holds phase hybrid's 32 launches and times at Hymba's heads; each SSD
+   entry names its model under ``path``), then the ``{"ok": true,
+   "device": ...}`` line last.
 
 Weights and inputs are random, made from fixed seeds.  The script imports
 nothing of JAX and nothing of the reference package ``repro``.
@@ -782,13 +803,22 @@ def _recurrence_tol(ref) -> float:
 class Lm:
     """Phase lm: the Mamba-2-780m prefill and decode path of the port."""
 
+    TAG = "lm"  # the phase's name on its printed lines
+    ARCH = LM_ARCH
+    PREFILL = LM_PREFILL
+    TIMED = LM_TIMED
+    TIMED_REPS = 3
+
     def __init__(self, torch, device):
         from repro_torch.configs import get_config
 
         self.torch = torch
         self.device = device
-        self.cfg = get_config(LM_ARCH)
+        self.cfg = get_config(self.ARCH)
         self.summary = {}
+
+    def _print(self, row) -> None:
+        print(f"{self.TAG} " + json.dumps(row), flush=True)
 
     def _tokens(self, shape, seed):
         gen = self.torch.Generator(device=self.device).manual_seed(seed)
@@ -822,7 +852,7 @@ class Lm:
 
         torch, cfg = self.torch, self.cfg
         params = self.params = init_params(cfg, 0, device=self.device)
-        tokens = self._tokens(LM_PREFILL, 3)
+        tokens = self._tokens(self.PREFILL, 3)
         prefill = make_prefill_step(cfg)
         layers = []
         real = ssm.ssd_scan
@@ -843,12 +873,13 @@ class Lm:
             ssm.ssd_scan = real
         torch.cuda.synchronize()
         if counts != self._expect(cfg.n_layers) or len(layers) != cfg.n_layers:
-            raise AssertionError(f"lm prefill: launch counts {counts}, {len(layers)}"
-                                 f" layers captured; want {cfg.n_layers}")
+            raise AssertionError(f"{self.TAG} prefill: launch counts {counts},"
+                                 f" {len(layers)} layers captured; want"
+                                 f" {cfg.n_layers}")
         lg = logits.float()
-        if (tuple(lg.shape) != (LM_PREFILL[0], cfg.vocab)
+        if (tuple(lg.shape) != (self.PREFILL[0], cfg.vocab)
                 or not bool(torch.isfinite(lg).all())):
-            raise AssertionError(f"lm prefill: logits {tuple(lg.shape)} not"
+            raise AssertionError(f"{self.TAG} prefill: logits {tuple(lg.shape)} not"
                                  " finite or not of the expected shape")
         # every layer: the kernel's y and state against the plain version
         err_y = err_s = mag_y = mag_s = plain_ms = 0.0
@@ -865,7 +896,7 @@ class Lm:
             ty = kd.plain_tol(py.float(), py.dtype)
             ts = kd.plain_tol(ps, torch.float32)
             if not (ey <= ty and es <= ts):
-                raise AssertionError(f"lm layer {i}: kernel vs plain y err {ey}"
+                raise AssertionError(f"{self.TAG} layer {i}: kernel vs plain y err {ey}"
                                      f" (tol {ty}), state err {es} (tol {ts})")
             err_y, err_s = max(err_y, ey), max(err_s, es)
             mag_y = max(mag_y, float(py.float().abs().max()))
@@ -879,7 +910,7 @@ class Lm:
         tol32 = kd.plain_tol(py, torch.float32)
         stol32 = kd.plain_tol(ps, torch.float32)
         if not (err32 <= tol32 and serr32 <= stol32):
-            raise AssertionError(f"lm layer 0 at f32: y err {err32} (tol"
+            raise AssertionError(f"{self.TAG} layer 0 at f32: y err {err32} (tol"
                                  f" {tol32}), state err {serr32} (tol {stol32})")
         stream = torch.cuda.current_stream().cuda_stream
         f32_ms = _median_ms(
@@ -906,7 +937,7 @@ class Lm:
             fwd_ms.append((time.perf_counter() - t0) * 1e3)
         ms = statistics.median(fwd_ms)
         row = dict(
-            cell=f"prefill bf16 {LM_PREFILL[0]}x{LM_PREFILL[1]}",
+            cell=f"prefill bf16 {self.PREFILL[0]}x{self.PREFILL[1]}",
             launches=counts[kd.SSD_SCAN.symbol],
             y_max_abs_err=err_y, state_max_abs_err=err_s,
             max_abs_y=mag_y, max_abs_state=mag_s,
@@ -915,10 +946,10 @@ class Lm:
             **slow,
             logits_vs_plain_forward=float((lg - plain_logits).abs().max()),
             max_abs_logit=float(lg.abs().max()),
-            forward_ms=ms, tokens_per_s=LM_PREFILL[0] * LM_PREFILL[1] / ms * 1e3,
+            forward_ms=ms, tokens_per_s=self.PREFILL[0] * self.PREFILL[1] / ms * 1e3,
             plain_ms=plain_ms, **timing, **bound,
         )
-        print("lm " + json.dumps(row), flush=True)
+        self._print(row)
         self.summary["prefill_bf16"] = row
         return row
 
@@ -945,7 +976,7 @@ class Lm:
         per_chunk = torch.exp((dt * A).reshape(b, S // Q, Q, H).sum(2))
         median = float(per_chunk.median())
         if not median > 0.05:
-            raise AssertionError(f"lm slow decay: median chunk decay {median}")
+            raise AssertionError(f"{self.TAG} slow decay: median chunk decay {median}")
         y, state = kd.ssd_scan_kernel(*args, chunk=Q)
         py, ps = kd.ssd_scan_plain(*args, chunk=Q)
         _, h_short = kd.ssd_scan_kernel(*(t[:, :S - Q] if t.dim() > 1 else t
@@ -961,7 +992,7 @@ class Lm:
         tc = kd.plain_tol(want, torch.float32)
         if not (ey <= ty and es <= ts and ec <= tc):
             raise AssertionError(
-                f"lm slow decay: y err {ey} (tol {ty}), state err {es} (tol"
+                f"{self.TAG} slow decay: y err {ey} (tol {ty}), state err {es} (tol"
                 f" {ts}), against the advanced shorter run {ec} (tol {tc})")
         return dict(slow_decay_median_chunk_decay=median,
                     slow_decay_max_abs_y=float(py.float().abs().max()),
@@ -971,31 +1002,36 @@ class Lm:
                     slow_decay_carry_max_abs_err=ec)
 
     def prefill_full(self) -> dict:
-        """The prefill_32k cell at bf16, no capture: the launch counts of
-        one forward, and the median host time of three after a warm-up,
+        """The timed cell at bf16, no capture: the launch counts of one
+        forward, which is also the warm-up, and the peak memory since just
+        before it; then the median host time of ``TIMED_REPS`` forwards,
         with each SSD call's device time taken by CUDA events around it
-        (the wrapper's casts and launch; no pad at this length)."""
+        (the wrapper's casts and launch; no pad at this length) and its
+        share of the forward."""
         from repro_torch.kernels import build
         from repro_torch.kernels.ssd_scan import ssd_scan as kd
         from repro_torch.launch.steps import make_prefill_step
         from repro_torch.models import ssm
 
         torch, cfg = self.torch, self.cfg
-        tokens = self._tokens(LM_TIMED, 6)
+        what = f"{self.TAG} prefill_32k"
+        tokens = self._tokens(self.TIMED, 6)
         prefill = make_prefill_step(cfg)
-        prefill(self.params, {"tokens": tokens})
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         build.reset_launch_counts()
         logits = prefill(self.params, {"tokens": tokens})
         counts = self._counts()
         torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         if counts != self._expect(cfg.n_layers):
-            raise AssertionError(f"lm prefill_32k: launch counts {counts}")
+            raise AssertionError(f"{what}: launch counts {counts}")
         lg = logits.float()
-        if (tuple(lg.shape) != (LM_TIMED[0], cfg.vocab)
+        if (tuple(lg.shape) != (self.TIMED[0], cfg.vocab)
                 or not bool(torch.isfinite(lg).all())):
-            raise AssertionError("lm prefill_32k: logits not finite or not"
-                                 " of the expected shape")
+            raise AssertionError(f"{what}: logits not finite or not of the"
+                                 " expected shape")
+        del logits
         spans = []
         real = ssm.ssd_scan
 
@@ -1009,7 +1045,7 @@ class Lm:
             return out
 
         fwd_ms, ssd_ms = [], []
-        for _ in range(3):
+        for _ in range(self.TIMED_REPS):
             spans.clear()
             ssm.ssd_scan = timed
             try:
@@ -1021,15 +1057,17 @@ class Lm:
                 ssm.ssd_scan = real
             ssd_ms.append(sum(a.elapsed_time(b) for a, b in spans))
         ms = statistics.median(fwd_ms)
-        n_tok = LM_TIMED[0] * LM_TIMED[1]
-        row = dict(cell=f"prefill bf16 {LM_TIMED[0]}x{LM_TIMED[1]} (prefill_32k)",
+        n_tok = self.TIMED[0] * self.TIMED[1]
+        row = dict(cell=(f"prefill bf16 {self.TIMED[0]}x{self.TIMED[1]}"
+                         " (prefill_32k)"),
                    launches=counts[kd.SSD_SCAN.symbol],
                    max_abs_logit=float(lg.abs().max()),
                    forward_ms=ms, forward_ms_runs=fwd_ms,
                    tokens_per_s=n_tok / ms * 1e3,
                    ssd_call_device_ms=statistics.median(ssd_ms),
-                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-        print("lm " + json.dumps(row), flush=True)
+                   ssd_share=statistics.median(ssd_ms) / ms,
+                   peak_gb=peak_gb)
+        self._print(row)
         self.summary["prefill_32k_bf16"] = row
         return row
 
@@ -1050,7 +1088,7 @@ class Lm:
         ms = _median_ms(bare, torch)
         if not (torch.equal(y, layers[-1]["y"])
                 and torch.equal(state, layers[-1]["state"])):
-            raise AssertionError("lm: the bare launch disagrees with the"
+            raise AssertionError(f"{self.TAG}: the bare launch disagrees with the"
                                  " wrapper's")
         call_ms = _median_ms(
             lambda: [kd.ssd_scan_kernel(*lay["args"], chunk=lay["chunk"])
@@ -1112,7 +1150,7 @@ class Lm:
         counts = self._counts()
         torch.cuda.synchronize()
         if counts != self._expect(cfg.n_layers):
-            raise AssertionError(f"lm f32 prefill: launch counts {counts}")
+            raise AssertionError(f"{self.TAG} f32 prefill: launch counts {counts}")
         step = make_decode_step(cfg)
         caches = init_caches(cfg, b, T, device=self.device)
         build.reset_launch_counts()
@@ -1122,18 +1160,19 @@ class Lm:
         torch.cuda.synchronize()
         dec_ms = (time.perf_counter() - t0) * 1e3 / T
         if self._counts() != self._expect(0):
-            raise AssertionError(f"lm decode launched a kernel: {self._counts()}")
+            raise AssertionError(f"{self.TAG} decode launched a kernel:"
+                                 f" {self._counts()}")
         err = float((got - want).abs().max())
         tol = _recurrence_tol(want)
         if not (err <= tol and bool(torch.isfinite(got).all())):
-            raise AssertionError(f"lm f32: prefill through {kd.SSD_SCAN.symbol}"
+            raise AssertionError(f"{self.TAG} f32: prefill through {kd.SSD_SCAN.symbol}"
                                  f" vs {T} decode steps, err {err} > tol {tol}")
         row = dict(cell=f"prefill f32 {b}x{T} vs {T} decode steps",
                    launches=counts[kd.SSD_SCAN.symbol],
                    logits_max_abs_err=err, tol=tol,
                    max_abs_logit=float(want.abs().max()),
                    decode_ms_per_token=dec_ms)
-        print("lm " + json.dumps(row), flush=True)
+        self._print(row)
         self.summary["recurrence_f32"] = row
         return row
 
@@ -1142,22 +1181,20 @@ class Lm:
         with valid token ids."""
         from repro_torch.launch.serve import serve
 
-        gen, tps = serve(LM_ARCH, reduced=False, device=self.device,
+        gen, tps = serve(self.ARCH, reduced=False, device=self.device,
                          **LM_SERVE)
         want = (LM_SERVE["batch"], LM_SERVE["new_tokens"])
         if (tuple(gen.shape) != want or int(gen.min()) < 0
                 or int(gen.max()) >= self.cfg.vocab):
-            raise AssertionError(f"lm serve: tokens {tuple(gen.shape)} in"
+            raise AssertionError(f"{self.TAG} serve: tokens {tuple(gen.shape)} in"
                                  f" [{int(gen.min())}, {int(gen.max())}]")
         row = dict(cell="serve bf16", **LM_SERVE, tokens_per_s=tps)
-        print("lm " + json.dumps(row), flush=True)
+        self._print(row)
         self.summary["serve_bf16"] = row
         return row
 
     def run(self) -> dict:
         """The three checks; returns kernel D's entry of the kernels line."""
-        from repro_torch.kernels.ssd_scan import ssd_scan as kd
-
         pre = self.prefill_bf16()
         self.torch.cuda.empty_cache()
         full = self.prefill_full()
@@ -1166,12 +1203,20 @@ class Lm:
         rec = self.recurrence_f32()
         self.torch.cuda.empty_cache()
         self.serve()
+        return self.entry(pre, [pre, full, rec])
+
+    def entry(self, pre, rows, name=None) -> dict:
+        """Kernel D's entry of the kernels line: its launches in the
+        checked bf16 prefill, the launches of every forward of ``rows``,
+        its largest error against the plain version and its times and
+        bound over that prefill's layers."""
+        from repro_torch.kernels.ssd_scan import ssd_scan as kd
+
         return dict(
-            name=kd.SSD_SCAN.symbol, route="cuda", source=kd.SSD_SCAN.source,
-            replaces=kd.SSD_SCAN.replaces, launches=pre["launches"],
-            launches_per_forward={pre["cell"]: pre["launches"],
-                                  full["cell"]: full["launches"],
-                                  rec["cell"]: rec["launches"]},
+            name=name or kd.SSD_SCAN.symbol, path=self.ARCH, route="cuda",
+            source=kd.SSD_SCAN.source, replaces=kd.SSD_SCAN.replaces,
+            launches=pre["launches"],
+            launches_per_forward={r["cell"]: r["launches"] for r in rows},
             max_abs_err=max(pre["y_max_abs_err"], pre["state_max_abs_err"],
                             pre["f32_layer0_y_max_abs_err"],
                             pre["f32_layer0_state_max_abs_err"],
@@ -1184,6 +1229,233 @@ class Lm:
             # no single PyTorch call computes the SSD chunk scan
             library_ms=None,
         )
+
+
+# ---- phase hybrid ---------------------------------------------------------
+
+# Hymba-1.5B at full width and full depth (32 layers, d_model 1600, 25 query
+# and 5 KV heads of 64, d_ff 5504, 50 Mamba heads of 64 with state 16, chunk
+# 256, window 1024 with global layers 0, 15 and 31, vocab 32001), random
+# weights from a seed: phase lm's checks at Hymba's shapes (the checked bf16
+# prefill of 4 x 4096 captures some 215 MB a layer, 6.9 GB for the 32), then
+# the hybrid path's own.  Cuts: the timed prefill runs 16 of the prefill_32k
+# cell's 32 sequences of 32,768 tokens, for memory (on an H100 80GB HBM3 at
+# 700 W, 8 sequences peaked at 19.5 GB and took 18.7 s a forward; the 32 ran
+# out of memory in layer 0's Mamba gate with 54.2 GB allocated and 23.6 GB
+# reserved but free); for the run's time limit, the f32 prefill against
+# decode runs 2 sequences of window + 64 tokens, one decode step a token (58
+# ms a step there), and the dense check runs phi-4-mini at full width and 4
+# of its 32 layers.
+HY_ARCH = "hymba_1_5b"
+HY_TIMED = (16, 32768)  # bf16: the prefill_32k cell, 16 of its 32 sequences
+HY_CHUNKED = 4096  # f32, one sequence: chunked over 4096, dense over 2048
+HY_RECURRENCE = 2  # f32: sequences of window + 64 tokens, prefill vs decode
+HY_DECODE = dict(batch=4, max_seq=2048, steps=64, warmup=4)  # bf16
+DENSE_ARCH = "phi4_mini_3_8b"
+DENSE_LAYERS = 4  # of 32, full width
+DENSE_TOKENS = (2, 1024)  # f32: one attention chunk, prefill vs decode
+
+
+class Hybrid(Lm):
+    """Phase hybrid: the Hymba-1.5B prefill, decode and serve path of the
+    port (kernel D in every layer's prefill, GQA attention with RoPE,
+    sliding windows and chunked prefill, SwiGLU), and a dense config's
+    prefill against its decode."""
+
+    TAG = "hybrid"
+    ARCH = HY_ARCH
+    TIMED = HY_TIMED
+    TIMED_REPS = 2
+
+    def _check_counts(self, counts, n, what) -> None:
+        if counts != self._expect(n):
+            raise AssertionError(f"{self.TAG} {what}: launch counts {counts},"
+                                 f" want {n} of D and no other")
+
+    def decode_bf16(self) -> dict:
+        """Decode ms per step at bf16 (one token for each of ``batch``
+        sequences, attention over the whole ``max_seq`` cache): the mean
+        over ``steps`` steps after ``warmup``, ended by a synchronize; no
+        kernel launches."""
+        from repro_torch.kernels import build
+        from repro_torch.launch.steps import make_decode_step
+        from repro_torch.models.serving import init_caches
+
+        torch, cfg = self.torch, self.cfg
+        b, S = HY_DECODE["batch"], HY_DECODE["max_seq"]
+        n, warm = HY_DECODE["steps"], HY_DECODE["warmup"]
+        tokens = self._tokens((b, n + warm), 8)
+        caches = init_caches(cfg, b, S, device=self.device)
+        step = make_decode_step(cfg)
+        for t in range(warm):
+            step(self.params, tokens[:, t:t + 1], caches, t)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        for t in range(warm, warm + n):
+            logits, caches = step(self.params, tokens[:, t:t + 1], caches, t)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        self._check_counts(self._counts(), 0, "decode")
+        if not bool(torch.isfinite(logits.float()).all()):
+            raise AssertionError(f"{self.TAG} decode: logits not finite")
+        row = dict(cell=f"decode bf16 batch {b}, cache {S}", steps=n,
+                   ms_per_step=ms, tokens_per_s=b / ms * 1e3)
+        self._print(row)
+        self.summary["decode_bf16"] = row
+        return row
+
+    def chunked_vs_dense(self) -> dict:
+        """Check 2: at f32, one sequence of ``HY_CHUNKED`` tokens through
+        chunked attention against its first half through dense attention:
+        the logits at the shared positions within ``_recurrence_tol``.  The
+        window bites in both; the global layers attend to everything."""
+        import dataclasses
+
+        from repro_torch.kernels import build
+        from repro_torch.models.model import forward, init_params
+
+        torch = self.torch
+        cfg = dataclasses.replace(self.cfg, dtype="float32")
+        params = self.params32 = init_params(cfg, 0, device=self.device)
+        tokens = self._tokens((1, HY_CHUNKED), 7)
+        half = HY_CHUNKED // 2
+        build.reset_launch_counts()
+        chunked, _ = forward(cfg, params, tokens, mode="prefill", chunked=True)
+        self._check_counts(self._counts(), cfg.n_layers, "chunked f32")
+        build.reset_launch_counts()
+        dense, _ = forward(cfg, params, tokens[:, :half], mode="prefill",
+                           chunked=False)
+        self._check_counts(self._counts(), cfg.n_layers, "dense f32")
+        err = float((chunked[:, :half] - dense).abs().max())
+        tol = _recurrence_tol(dense)
+        if not (err <= tol and bool(torch.isfinite(chunked).all())):
+            raise AssertionError(f"{self.TAG} f32: chunked vs dense attention"
+                                 f" err {err} > tol {tol}")
+        row = dict(cell=f"chunked f32 1x{HY_CHUNKED} vs dense 1x{half}",
+                   launches=cfg.n_layers, logits_max_abs_err=err, tol=tol,
+                   max_abs_logit=float(dense.abs().max()))
+        self._print(row)
+        self.summary["chunked_vs_dense_f32"] = row
+        return row
+
+    def recurrence_f32(self) -> dict:
+        """Check 3: at f32, the prefill of ``window + 64`` tokens (dense
+        attention, D once a layer) against as many decode steps over the
+        same tokens, every position's logits within ``_recurrence_tol``:
+        the sliding window and the attention caches in the decode path, on
+        the card.  The decode's seconds include each step's comparison."""
+        import dataclasses
+
+        from repro_torch.kernels import build
+        from repro_torch.launch.steps import make_decode_step
+        from repro_torch.models.model import forward
+        from repro_torch.models.serving import init_caches
+
+        torch = self.torch
+        cfg = dataclasses.replace(self.cfg, dtype="float32")
+        params = self.params32
+        b, T = HY_RECURRENCE, cfg.window + 64
+        tokens = self._tokens((b, T), 4)
+        build.reset_launch_counts()
+        want, _ = forward(cfg, params, tokens, mode="prefill")
+        self._check_counts(self._counts(), cfg.n_layers, "f32 prefill")
+        step = make_decode_step(cfg)
+        caches = init_caches(cfg, b, T, device=self.device)
+        errs = []
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        for t in range(T):
+            got, caches = step(params, tokens[:, t:t + 1], caches, t)
+            errs.append((got - want[:, t]).abs().amax())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        self._check_counts(self._counts(), 0, "f32 decode")
+        err = float(torch.stack(errs).max())
+        tol = _recurrence_tol(want)
+        if not (err <= tol and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{self.TAG} f32: prefill vs {T} decode steps,"
+                                 f" err {err} > tol {tol}")
+        row = dict(cell=f"prefill f32 {b}x{T} vs {T} decode steps",
+                   launches=cfg.n_layers, logits_max_abs_err=err,
+                   last_position_max_abs_err=float(errs[-1]), tol=tol,
+                   max_abs_logit=float(want.abs().max()),
+                   decode_seconds=seconds,
+                   decode_ms_per_token=seconds * 1e3 / T)
+        self._print(row)
+        self.summary["recurrence_f32"] = row
+        return row
+
+    def dense_f32(self) -> dict:
+        """Check 4: phi-4-mini at full width and ``DENSE_LAYERS`` layers,
+        f32: the prefill step's logits (chunked attention) against the last
+        of as many decode steps, within ``_recurrence_tol``; no kernel."""
+        import dataclasses
+
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import build
+        from repro_torch.launch.steps import make_decode_step, make_prefill_step
+        from repro_torch.models.model import init_params
+        from repro_torch.models.serving import init_caches
+
+        torch = self.torch
+        cfg = dataclasses.replace(get_config(DENSE_ARCH),
+                                  n_layers=DENSE_LAYERS, dtype="float32")
+        params = init_params(cfg, 0, device=self.device)
+        b, T = DENSE_TOKENS
+        gen = torch.Generator(device=self.device).manual_seed(9)
+        tokens = torch.randint(0, cfg.vocab, (b, T), generator=gen,
+                               device=self.device)
+        build.reset_launch_counts()
+        want = make_prefill_step(cfg)(params, {"tokens": tokens})
+        step = make_decode_step(cfg)
+        caches = init_caches(cfg, b, T, device=self.device)
+        t0 = time.perf_counter()
+        for t in range(T):
+            got, caches = step(params, tokens[:, t:t + 1], caches, t)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        self._check_counts(self._counts(), 0, f"{DENSE_ARCH}")
+        err = float((got - want).abs().max())
+        tol = _recurrence_tol(want)
+        if not (err <= tol and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{self.TAG} {DENSE_ARCH} f32: prefill vs {T}"
+                                 f" decode steps, err {err} > tol {tol}")
+        row = dict(cell=(f"{DENSE_ARCH} ({DENSE_LAYERS} of 32 layers) prefill"
+                         f" f32 {b}x{T} vs {T} decode steps"),
+                   logits_max_abs_err=err, tol=tol,
+                   max_abs_logit=float(want.abs().max()),
+                   decode_ms_per_token=seconds * 1e3 / T)
+        self._print(row)
+        self.summary["dense_f32"] = row
+        return row
+
+    def run(self) -> dict:
+        """The checks in order; returns kernel D's entry of the kernels
+        line for this path."""
+        from repro_torch.kernels.ssd_scan import ssd_scan as kd
+
+        empty = self.torch.cuda.empty_cache
+        pre = self.prefill_bf16()
+        empty()
+        full = self.prefill_full()
+        empty()
+        self.decode_bf16()
+        del self.params
+        empty()
+        self.serve()
+        empty()
+        chunk = self.chunked_vs_dense()
+        rec = self.recurrence_f32()
+        del self.params32
+        empty()
+        self.dense_f32()
+        empty()
+        n = chunk["launches"]
+        rows = [pre, full, dict(cell=f"chunked f32 1x{HY_CHUNKED}", launches=n),
+                dict(cell=f"dense f32 1x{HY_CHUNKED // 2}", launches=n), rec]
+        return self.entry(pre, rows, name=f"{kd.SSD_SCAN.symbol}@{self.ARCH}")
 
 
 # ---- phase ops ------------------------------------------------------------
@@ -2067,7 +2339,7 @@ def print_build_report(reports, fc, device) -> None:
     lines (entry, registers, stack and spills) from this run's build; each
     pyramid kernel's co-resident block count per dtype (the grid of its
     cooperative launch) and the SSD scan's blocks a SM per instance at the
-    Mamba-2 model's head width, state and chunk."""
+    Mamba-2 and Hymba models' head width, state and chunk."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2082,12 +2354,13 @@ def print_build_report(reports, fc, device) -> None:
         for name, code in fc._DTYPE_CODES.items():
             print(f"resident blocks {k.symbol} {name}:"
                   f" {k.resident_blocks(code, device)}", flush=True)
-    cfg = get_config(LM_ARCH)
-    shape = (cfg.ssm_head_dim, cfg.ssm_state, cfg.ssd_chunk)
-    for dtype in (torch.bfloat16, torch.float32):
-        print(f"resident blocks a SM {kd.SSD_SCAN.symbol} {dtype} at"
-              f" (P, N, Q) = {shape}:"
-              f" {kd.resident_blocks(*shape, dtype, device)}", flush=True)
+    for arch in (LM_ARCH, HY_ARCH):
+        cfg = get_config(arch)
+        shape = (cfg.ssm_head_dim, cfg.ssm_state, cfg.ssd_chunk)
+        for dtype in (torch.bfloat16, torch.float32):
+            print(f"resident blocks a SM {kd.SSD_SCAN.symbol} {dtype} at"
+                  f" (P, N, Q) = {shape}:"
+                  f" {kd.resident_blocks(*shape, dtype, device)}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -2143,6 +2416,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         lm = Lm(torch, device)
         ssd = lm.run()
+        torch.cuda.empty_cache()
+        hybrid = Hybrid(torch, device)
+        ssd_hybrid = hybrid.run()
+        torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tmp:
             ops = Ops(smoke, Path(tmp) if args.out is None
                       else args.out.parent).run()
@@ -2164,6 +2441,7 @@ def main(argv=None) -> int:
             ))
         kernels.append(sop)
         kernels.append(ssd)
+        kernels.append(ssd_hybrid)
         if args.out is not None:
             args.out.parent.mkdir(parents=True, exist_ok=True)
             args.out.write_text(json.dumps(dict(
@@ -2172,6 +2450,7 @@ def main(argv=None) -> int:
                 end_to_end=[r["summary"] for r in smoke.runs],
                 sop=smoke.sop_rows,
                 lm=lm.summary,
+                hybrid=hybrid.summary,
                 ops=ops,
                 serve=serve,
                 seconds=time.perf_counter() - t0,

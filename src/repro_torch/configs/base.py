@@ -3,9 +3,9 @@
 The port of the reference's ``repro.configs.base``, fields unchanged.  One
 config file per ported architecture lives next to this module; each exposes
 ``CONFIG``.  ``get_config(name)`` resolves from the registry, which lists
-only the architectures whose family the port runs (the SSM family so far);
-``cfg.reduced()`` builds the family-preserving small config used by the CPU
-tests.
+only the architectures whose family the port runs (the dense, hybrid and
+SSM families so far); ``cfg.reduced()`` builds the family-preserving small
+config used by the CPU tests.
 """
 
 from __future__ import annotations
@@ -128,9 +128,15 @@ class ArchConfig:
         )
 
 
-# the ported architectures; the reference's other nine need attention, MoE,
-# cross-attention or an encoder, which the port does not have yet
-ARCH_IDS = ("mamba2_780m",)
+# the ported architectures, in the reference's order; its other six need
+# MLA, MoE, cross-attention or an encoder, which the port does not have yet
+ARCH_IDS = (
+    "deepseek_7b",
+    "glm4_9b",
+    "phi4_mini_3_8b",
+    "hymba_1_5b",
+    "mamba2_780m",
+)
 
 
 def get_config(name: str) -> ArchConfig:

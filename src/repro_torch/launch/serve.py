@@ -1,15 +1,15 @@
-"""Serving loop: batched greedy decode with SSM caches.
+"""Serving loop: batched greedy decode with KV and SSM caches.
 
 The port of the reference's ``repro.launch.serve``:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_780m \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba_1_5b \
         --tokens 32 [--device cpu]
 
 greedily decodes a batch of random prompts on the reduced config, on the
 card unless ``--device`` says otherwise; :func:`serve` takes
 ``reduced=False`` for the full config.  The prompt is
 prefilled by repeated decode, as in the reference, so one step serves every
-position.
+position: step ``i`` writes its token at cache position ``i``.
 """
 
 from __future__ import annotations

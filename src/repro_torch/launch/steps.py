@@ -16,8 +16,11 @@ from repro_torch.models import serving as S
 def make_prefill_step(cfg: ArchConfig):
     def prefill_step(params, batch):
         """``batch["tokens"] (B, S)`` -> the last position's logits
-        ``(B, V)``."""
-        hidden, _ = M.hidden_forward(cfg, params, batch["tokens"])
+        ``(B, V)``.  Attention runs flash-chunked, as in the reference, so
+        an attention family's ``S`` must be a multiple of
+        ``cfg.attn_chunk`` (a ``ValueError`` otherwise)."""
+        hidden, _ = M.hidden_forward(cfg, params, batch["tokens"],
+                                     mode="prefill", chunked=True)
         # project ONLY the last position: (B, S, V) logits never materialize
         return M.logits_fn(cfg, params, hidden[:, -1:, :])[:, 0, :]
 

@@ -1,25 +1,88 @@
 """Per-family layer bodies.
 
-The port of the reference's ``repro.models.blocks``, cut to the SSM family:
-:func:`ssm_layer` has the signature ``(cfg, p, x, cache) -> (x,
-new_cache)``, and :mod:`repro_torch.models.model` loops it over stacked
-params.  The reference's ``LayerCtx`` (mode, decode position, attention
-switches), its ``_norm`` dispatch and the per-layer aux loss have no reader
-in this family and wait for the families that read them.
+The port of the reference's ``repro.models.blocks``, cut to the dense,
+hybrid and SSM families.  Every body has the signature ``(cfg, p, x, ctx,
+cache) -> (x, new_cache)``, where ``ctx`` is a :class:`LayerCtx` carrying
+the mode and the attention switches; :mod:`repro_torch.models.model` loops
+the bodies over stacked params.  The reference's per-layer aux loss is
+gone: no layer of these families produces one.  LayerNorm, the GELU MLP and
+MLA raise ``NotImplementedError``: no ported config uses them.
 """
 
 from __future__ import annotations
 
-from .layers import rms_norm
+from dataclasses import dataclass
+from typing import Any
+
+from .layers import gqa_attention, rms_norm, swiglu
 from .ssm import mamba2_mixer
 
 
-def ssm_layer(cfg, p, x, cache=None):
+@dataclass
+class LayerCtx:
+    mode: str = "train"  # train | prefill | decode
+    cache_index: Any = None  # position of the first token in decode
+    chunked: bool = False  # use flash-chunked attention
+    causal: bool = True
+    window: int = 0  # sliding window for this layer (0 = full)
+
+
+def _unported(what: str):
+    return NotImplementedError(f"{what} is not ported yet")
+
+
+def _norm(cfg, x, p_scale):
+    if cfg.norm != "rmsnorm":
+        raise _unported(f"norm={cfg.norm!r}")
+    return rms_norm(x, p_scale)
+
+
+def _ffn(cfg, p, x):
+    if cfg.act != "swiglu":
+        raise _unported(f"act={cfg.act!r}")
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def _self_attention(cfg, p, x, ctx: LayerCtx, cache):
+    if cfg.attn_kind != "gqa":
+        raise _unported(f"attn_kind={cfg.attn_kind!r}")
+    return gqa_attention(
+        p,
+        x,
+        n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads,
+        d_head=cfg.d_head,
+        rope_theta=cfg.rope_theta,
+        causal=ctx.causal,
+        window=ctx.window,
+        kv_cache=cache,
+        cache_index=ctx.cache_index,
+        chunked=ctx.chunked,
+        q_chunk=cfg.attn_chunk,
+        kv_chunk=cfg.attn_chunk,
+    )
+
+
+# ---------------------------------------------------------------------------
+# family bodies
+# ---------------------------------------------------------------------------
+
+
+def dense_layer(cfg, p, x, ctx: LayerCtx, cache=None):
+    """Pre-norm dense block (deepseek / glm4 / phi4 / llama)."""
+    h, new_cache = _self_attention(
+        cfg, p["attn"], _norm(cfg, x, p["attn_norm"]), ctx, cache)
+    x = x + h
+    x = x + _ffn(cfg, p["ffn"], _norm(cfg, x, p["ffn_norm"]))
+    return x, new_cache
+
+
+def ssm_layer(cfg, p, x, ctx: LayerCtx, cache=None):
     """Mamba-2 block: rmsnorm -> mixer -> residual (no separate FFN).
     ``cache`` is ``None`` in prefill and the layer's SSM cache in decode."""
     h, new_cache = mamba2_mixer(
         p["mixer"],
-        rms_norm(x, p["norm"]),
+        _norm(cfg, x, p["norm"]),
         n_heads=cfg.ssm_heads,
         head_dim=cfg.ssm_head_dim,
         state_dim=cfg.ssm_state,
@@ -28,3 +91,32 @@ def ssm_layer(cfg, p, x, cache=None):
         ssm_cache=cache,
     )
     return x + h, new_cache
+
+
+def hybrid_layer(cfg, p, x, ctx: LayerCtx, cache=None):
+    """Hymba block: attention and mamba heads in parallel, then FFN.
+
+    ``cache`` is a dict with 'attn' and 'ssm' sub-caches (``None`` outside
+    decode).  The two heads' outputs are summed before the halving, so in
+    bf16 the sum rounds first, as in the reference.
+    """
+    attn_cache = cache.get("attn") if cache else None
+    ssm_cache = cache.get("ssm") if cache else None
+    xn = _norm(cfg, x, p["attn_norm"])
+    h_attn, new_attn = _self_attention(cfg, p["attn"], xn, ctx, attn_cache)
+    h_ssm, new_ssm = mamba2_mixer(
+        p["mixer"],
+        xn,
+        n_heads=cfg.ssm_heads,
+        head_dim=cfg.ssm_head_dim,
+        state_dim=cfg.ssm_state,
+        conv_dim=cfg.ssm_conv,
+        chunk=cfg.ssd_chunk,
+        ssm_cache=ssm_cache,
+    )
+    x = x + 0.5 * (h_attn + h_ssm)  # parallel-head fusion (mean combine)
+    x = x + _ffn(cfg, p["ffn"], _norm(cfg, x, p["ffn_norm"]))
+    new_cache = None
+    if cache is not None:
+        new_cache = {"attn": new_attn, "ssm": new_ssm}
+    return x, new_cache

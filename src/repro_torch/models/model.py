@@ -1,18 +1,23 @@
 """Model assembly: param specs and the forward over the layer stack.
 
-The port of the reference's ``repro.models.model`` for the ``ssm`` family
-(Mamba-2): every layer is one ``ssm_layer`` over stacked ``(L, ...)``
-params.  The reference's ``lax.scan`` over the stack is a Python loop over
-the leading dimension; its sharding constraints and remat are gone (one
-GPU, no training in the port yet), and so are the ``mode``, ``cache_index``
-and ``chunked`` arguments and the aux-loss sum, which no layer of this
-family reads or produces: :func:`forward` returns ``(logits, caches)``
-where the reference returns ``(logits, aux, caches)``.  Other families,
-layernorm and tied embeddings raise ``NotImplementedError``: no ported
-config uses them.
+The port of the reference's ``repro.models.model`` for the decoder
+families with RMSNorm and an untied head: ``ssm`` (Mamba-2, one
+``ssm_layer`` a layer), ``dense`` (``dense_layer``) and ``hybrid`` (Hymba:
+``hybrid_layer``, attention and Mamba heads in parallel, run in
+order-faithful segments of global full-attention layers and sliding-window
+layers).  The reference's ``lax.scan`` over a stack of ``(L, ...)`` params
+is a Python loop over the leading dimension; its sharding constraints and
+remat are gone (one GPU, no training in the port yet), and so is the
+aux-loss sum, which no layer of these families produces: :func:`forward`
+returns ``(logits, caches)`` where the reference returns ``(logits, aux,
+caches)``.  Caches are updated in place.  Other families (MoE, VLM,
+encoder-decoder), layernorm, GELU, MLA and tied embeddings raise
+``NotImplementedError``: no ported config uses them.
 """
 
 from __future__ import annotations
+
+from dataclasses import replace
 
 import torch
 
@@ -20,20 +25,24 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import resolve_device
 
 from . import params as prm
-from .blocks import ssm_layer
+from .blocks import LayerCtx, dense_layer, hybrid_layer, ssm_layer
 from .layers import rms_norm
 from .params import P, stack_specs, tree_map
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_BODY = {"dense": dense_layer, "ssm": ssm_layer, "hybrid": hybrid_layer}
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    got = (cfg.family, cfg.kind, cfg.norm, cfg.tie_embeddings)
-    if got != ("ssm", "decoder", "rmsnorm", False):
+    got = (cfg.family, cfg.kind, cfg.norm, cfg.tie_embeddings,
+           cfg.attn_kind, cfg.act)
+    if (cfg.family not in _BODY
+            or got[1:] != ("decoder", "rmsnorm", False, "gqa", "swiglu")):
         raise NotImplementedError(
-            f"{cfg.name}: (family, kind, norm, tie_embeddings) = {got} is"
-            " not ported yet; the port runs the ssm family's decoder with"
-            " rmsnorm and an untied head"
+            f"{cfg.name}: (family, kind, norm, tie_embeddings, attn_kind,"
+            f" act) = {got} is not ported yet; the port runs the"
+            f" {sorted(_BODY)} families' decoders with rmsnorm, GQA"
+            " attention, SwiGLU and an untied head"
         )
 
 
@@ -44,21 +53,48 @@ def _check_family(cfg: ArchConfig) -> None:
 
 def _layer_specs(cfg: ArchConfig) -> dict:
     """Spec of ONE layer of the main stack (unstacked)."""
-    return {
-        "norm": P((cfg.d_model,), (None,), "one"),
-        "mixer": prm.mamba_specs(cfg),
-    }
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        return {"norm": P((d,), (None,), "one"),
+                "mixer": prm.mamba_specs(cfg)}
+    s = {"attn_norm": P((d,), (None,), "one"), "attn": prm.gqa_specs(cfg)}
+    if cfg.family == "hybrid":
+        s["mixer"] = prm.mamba_specs(cfg)
+    s["ffn_norm"] = P((d,), (None,), "one")
+    s["ffn"] = prm.swiglu_specs(d, cfg.d_ff)
+    return s
+
+
+def _hymba_segments(cfg: ArchConfig):
+    """Order-faithful (kind, count) segments: g = global, s = sliding."""
+    globals_ = sorted(cfg.global_layers)
+    segs, prev = [], 0
+    for g in globals_:
+        if g > prev:
+            segs.append(("s", g - prev))
+        segs.append(("g", 1))
+        prev = g + 1
+    if prev < cfg.n_layers:
+        segs.append(("s", cfg.n_layers - prev))
+    return segs
 
 
 def build_param_specs(cfg: ArchConfig) -> dict:
     _check_family(cfg)
     d, V = cfg.d_model, cfg.vocab
-    return {
+    specs = {
         "embed": P((V, d), ("vocab", "embed"), 0.02),
         "final_norm": P((d,), (None,), "one"),
         "lm_head": P((d, V), ("embed", "vocab")),
-        "layers": stack_specs(_layer_specs(cfg), cfg.n_layers, "layers"),
     }
+    layer = _layer_specs(cfg)
+    if cfg.family == "hybrid":
+        n_g = len(cfg.global_layers)
+        specs["global"] = stack_specs(layer, n_g, "layers")
+        specs["sliding"] = stack_specs(layer, cfg.n_layers - n_g, "layers")
+    else:
+        specs["layers"] = stack_specs(layer, cfg.n_layers, "layers")
+    return specs
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
@@ -79,23 +115,59 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked ``(L, ...)`` tree."""
-    return tree_map(lambda t: t[i], tree)
+def _layers(tree, lo: int, hi: int):
+    """Layers ``lo .. hi - 1`` of a stacked ``(L, ...)`` tree, as views."""
+    return tree_map(lambda t: t[lo:hi], tree)
 
 
-def _stack(cfg, x, stacked_params, caches=None):
-    """Run the layer stack in order.  ``caches`` (stacked ``(L, B, ...)``)
-    are updated in place, layer by layer."""
-    for i in range(cfg.n_layers):
-        p = _layer(stacked_params, i)
+def _write_back(cache, new) -> None:
+    """Copy a layer's new cache into its slot of the stacked caches; a
+    tensor the layer already updated in place is left alone."""
+    if isinstance(cache, dict):
+        for k in cache:
+            _write_back(cache[k], new[k])
+    elif new is not cache:
+        cache.copy_(new)
+
+
+def _stack(cfg, body, x, stacked_params, ctx: LayerCtx, caches=None):
+    """Run a homogeneous layer stack in order.  ``caches`` (stacked ``(L,
+    B, ...)``) are updated in place, layer by layer."""
+    for i in range(prm.leaves(stacked_params)[0].shape[0]):
+        p = tree_map(lambda t: t[i], stacked_params)
         if caches is None:
-            x, _ = ssm_layer(cfg, p, x)
+            x, _ = body(cfg, p, x, ctx, None)
         else:
-            x, new_cache = ssm_layer(cfg, p, x, _layer(caches, i))
-            for k, v in new_cache.items():
-                caches[k][i].copy_(v)
-    return x, caches
+            cache = tree_map(lambda t: t[i], caches)
+            x, new_cache = body(cfg, p, x, ctx, cache)
+            _write_back(cache, new_cache)
+    return x
+
+
+def _hymba_forward(cfg, params, x, ctx: LayerCtx, caches=None):
+    """The segments in order: a global layer attends over everything
+    (``window = 0``), a sliding segment within ``cfg.window``; each takes
+    its own slice of the ``global`` or ``sliding`` stacks and caches."""
+    gi = si = 0
+    for kind, count in _hymba_segments(cfg):
+        if kind == "g":
+            part, lo, window = "global", gi, 0
+            gi += count
+        else:
+            part, lo, window = "sliding", si, cfg.window
+            si += count
+        cache = (None if caches is None
+                 else _layers(caches[part], lo, lo + count))
+        x = _stack(cfg, hybrid_layer, x, _layers(params[part], lo, lo + count),
+                   replace(ctx, window=window), cache)
+    return x
+
+
+def _decoder_forward(cfg, params, x, ctx: LayerCtx, caches=None):
+    """Run the decoder stack; returns the hidden states."""
+    if cfg.family == "hybrid":
+        return _hymba_forward(cfg, params, x, ctx, caches)
+    return _stack(cfg, _BODY[cfg.family], x, params["layers"], ctx, caches)
 
 
 def _final_norm(cfg, params, x):
@@ -107,16 +179,27 @@ def logits_fn(cfg, params, x):
 
 
 def hidden_forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
-                   caches=None):
+                   mode: str = "train", chunked: bool | None = None,
+                   caches=None, cache_index=None):
     """Forward of ``tokens (B, S)`` returning ``(hidden (B, S, d),
-    caches)``: the pre-head hidden states; ``caches``, when given, are
-    updated in place (decode, one token per sequence)."""
+    caches)``: the pre-head hidden states.  ``chunked`` (flash-chunked
+    attention) defaults to ``S > 2048`` and is off whenever ``caches`` are
+    given; ``caches``, when given, are updated in place with the tokens at
+    positions ``cache_index ..`` (decode)."""
     _check_family(cfg)
     x = params["embed"][tokens].to(_dtype(cfg))
-    return _stack(cfg, x, params["layers"], caches)
+    if chunked is None:
+        chunked = tokens.shape[1] > 2048
+    ctx = LayerCtx(mode=mode, cache_index=cache_index,
+                   chunked=chunked and caches is None, causal=True, window=0)
+    return _decoder_forward(cfg, params, x, ctx, caches), caches
 
 
-def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *, caches=None):
+def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
+            mode: str = "train", chunked: bool | None = None, caches=None,
+            cache_index=None):
     """Full forward.  Returns ``(logits (B, S, V), caches)``."""
-    x, new_caches = hidden_forward(cfg, params, tokens, caches=caches)
+    x, new_caches = hidden_forward(cfg, params, tokens, mode=mode,
+                                   chunked=chunked, caches=caches,
+                                   cache_index=cache_index)
     return logits_fn(cfg, params, x), new_caches

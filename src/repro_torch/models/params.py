@@ -1,10 +1,11 @@
 """Parameter specs: one source of truth for shapes and init scales.
 
-The port of the reference's ``repro.models.params``, cut to what the SSM
-family needs.  Every leaf is declared as ``P(shape, axes, scale)``; the
-tree drives real initialization (truncated normal with fan-in scaling,
-from an explicit ``torch.Generator``).  The logical ``axes`` are kept for
-parity with the reference's specs; one GPU resolves none of them.
+The port of the reference's ``repro.models.params``, cut to what the SSM,
+dense and hybrid families need.  Every leaf is declared as ``P(shape,
+axes, scale)``; the tree drives real initialization (truncated normal
+with fan-in scaling, from an explicit ``torch.Generator``).  The logical
+``axes`` are kept for parity with the reference's specs; one GPU resolves
+none of them.
 
 Trees are nested dicts; :func:`leaves` and :func:`tree_map` walk them in
 sorted-key order, the order ``jax.tree`` flattens a dict in.
@@ -72,6 +73,24 @@ def stack_specs(specs: Any, n: int, axis_name: str = "layers"):
     """Prepend a stacked (layer) dimension to every leaf of a layer spec."""
     return tree_map(
         lambda s: P((n,) + s.shape, (axis_name,) + s.axes, s.scale), specs)
+
+
+def gqa_specs(cfg) -> dict:
+    d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    return {
+        "wq": P((d, H, Dh), ("embed", "heads", None)),
+        "wk": P((d, Hkv, Dh), ("embed", "kv_heads", None)),
+        "wv": P((d, Hkv, Dh), ("embed", "kv_heads", None)),
+        "wo": P((H, Dh, d), ("heads", None, "embed")),
+    }
+
+
+def swiglu_specs(d: int, f: int) -> dict:
+    return {
+        "w_gate": P((d, f), ("embed", "mlp")),
+        "w_up": P((d, f), ("embed", "mlp")),
+        "w_down": P((f, d), ("mlp", "embed")),
+    }
 
 
 def mamba_specs(cfg) -> dict:

@@ -1,15 +1,20 @@
 """Serving substrate: cache specs, init, and the decode step.
 
-The port of the reference's ``repro.models.serving`` for the SSM family,
-whose cache is ``conv (L, B, K-1, conv_ch)`` + ``state (L, B, H, P, N)``,
-O(1) in the sequence length.  Caches are declared with the same
-:class:`~repro_torch.models.params.P` specs as parameters and made in the
-config's dtype, as the reference makes them: in bf16 runs the SSM state
-rides in bf16 between tokens and ``ssd_decode_step`` computes its output
-from a float32 copy each token.
+The port of the reference's ``repro.models.serving`` for the dense, hybrid
+and SSM families.  Cache layouts per family:
 
-:func:`decode_step` consumes one token per sequence and updates the caches
-**in place** (the reference returns new ones).
+* GQA (dense): k/v  (L, B, S_max, H_kv, D_h)
+* SSM:    conv (L, B, K-1, conv_ch) + state (L, B, H, P, N) — O(1) in S
+* hybrid: 'global' and 'sliding' stacks (3 and 29 layers at Hymba-1.5B),
+          each {'attn': GQA k/v, 'ssm': conv/state}
+
+Caches are declared with the same :class:`~repro_torch.models.params.P`
+specs as parameters and made in the config's dtype, as the reference makes
+them: in bf16 runs the SSM state rides in bf16 between tokens and
+``ssd_decode_step`` computes its output from a float32 copy each token.
+
+:func:`decode_step` consumes one token per sequence at ``cache_index`` and
+updates the caches **in place** (the reference returns new ones).
 """
 
 from __future__ import annotations
@@ -21,6 +26,15 @@ from repro_torch.core import resolve_device
 
 from .model import _check_family, _dtype, forward
 from .params import P, tree_map
+
+
+def _gqa_cache(cfg, L, B, S) -> dict:
+    Hkv, Dh = cfg.n_kv_heads, cfg.d_head
+    ax = ("layers", "batch", "cache_seq", "kv_heads", None)
+    return {
+        "k": P((L, B, S, Hkv, Dh), ax, "zero"),
+        "v": P((L, B, S, Hkv, Dh), ax, "zero"),
+    }
 
 
 def _ssm_cache(cfg, L, B) -> dict:
@@ -41,7 +55,19 @@ def build_cache_specs(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
     """The cache specs of ``batch`` sequences of up to ``max_seq`` tokens
     (an SSM cache does not depend on ``max_seq``)."""
     _check_family(cfg)
-    return _ssm_cache(cfg, cfg.n_layers, batch)
+    L, B, S = cfg.n_layers, batch, max_seq
+    if cfg.family == "ssm":
+        return _ssm_cache(cfg, L, B)
+    if cfg.family == "hybrid":
+        n_g = len(cfg.global_layers)
+        n_s = L - n_g
+        return {
+            "global": {"attn": _gqa_cache(cfg, n_g, B, S),
+                       "ssm": _ssm_cache(cfg, n_g, B)},
+            "sliding": {"attn": _gqa_cache(cfg, n_s, B, S),
+                        "ssm": _ssm_cache(cfg, n_s, B)},
+        }
+    return _gqa_cache(cfg, L, B, S)
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int, *, device=None):
@@ -54,14 +80,36 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int, *, device=None):
     )
 
 
+def hybrid_split_caches(cfg, caches):
+    """Reorder hybrid caches into the forward pass's (global, sliding) view.
+
+    The specs already separate the global and sliding stacks, each zipped as
+    {'attn':..., 'ssm':...}: the identity today, kept as the single point of
+    change if cache layouts diverge."""
+    return caches
+
+
+def _to_forward_caches(cfg, caches):
+    if cfg.family == "hybrid":
+        # the forward wants per-part dicts {'attn': {k,v}, 'ssm': {...}}
+        def regroup(part):
+            return {"attn": part["attn"], "ssm": part["ssm"]}
+
+        return {"global": regroup(caches["global"]),
+                "sliding": regroup(caches["sliding"])}
+    return caches
+
+
 def decode_step(
     cfg: ArchConfig,
     params,
     tokens: torch.Tensor,  # (B, 1)
     caches,
-    cache_index,  # position of the token (unused by the SSM family)
+    cache_index: int,  # position of the token (unused by the SSM family)
 ):
     """One serving step: the next-token logits ``(B, V)`` and the caches,
-    updated in place."""
-    logits, caches = forward(cfg, params, tokens, caches=caches)
+    updated in place (the same tree that was passed in)."""
+    logits, _ = forward(cfg, params, tokens, mode="decode", chunked=False,
+                        caches=_to_forward_caches(cfg, caches),
+                        cache_index=cache_index)
     return logits[:, -1, :], caches

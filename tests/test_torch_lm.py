@@ -65,10 +65,11 @@ def test_config_matches_the_reference():
         if not full:
             j, t = j.reduced(), t.reduced()
         assert dataclasses.asdict(t) == dataclasses.asdict(j)
-    assert ARCH_IDS == (ARCH,)
+    assert ARCH_IDS == ("deepseek_7b", "glm4_9b", "phi4_mini_3_8b",
+                        "hymba_1_5b", ARCH)
     assert get_config("mamba2-780m") is get_config(ARCH)
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("glm4_9b")
+        get_config("minicpm3_4b")  # MLA: not ported yet
     assert SHAPES["prefill_32k"].seq_len == 32_768
 
 
@@ -84,8 +85,9 @@ def test_param_count_and_specs_match_the_reference():
 
 
 @pytest.mark.parametrize("change", [
-    dict(family="dense"), dict(kind="encdec"), dict(norm="layernorm"),
-    dict(tie_embeddings=True)], ids=["dense", "encdec", "layernorm", "tied"])
+    dict(attn_kind="mla"), dict(family="moe"), dict(kind="encdec"),
+    dict(norm="layernorm"), dict(tie_embeddings=True), dict(act="gelu")],
+    ids=["mla", "moe", "encdec", "layernorm", "tied", "gelu"])
 def test_unported_configs_are_refused(change):
     cfg = dataclasses.replace(get_config(ARCH).reduced(), **change)
     with pytest.raises(NotImplementedError, match="not ported"):
