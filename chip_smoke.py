@@ -9,15 +9,17 @@ The main path is the paper's contribution, a CNN forward through fused conv
 pyramids: the zoo graph (``repro_torch.net.graph``), the auto-partitioner's
 cuts (``repro_torch.net.partition.auto_partition``) and the plan-driven
 ``repro_torch.net.runner.run_network``, one hand-written CUDA pyramid kernel
-launch per pyramid; phase 7 runs it again traced and guarded.  The second
+launch per pyramid; phase ops runs it again traced and guarded.  The second
 path is the paper's other half, the digit-serial sum of products with Early
 Negative Detection (``repro_torch.kernels.online_sop.online_sop_end``) on
 VGG-16's first two conv layers.  The third is the Mamba-2 language model's
 prefill and decode, whose prefill runs the SSD chunk scan
 (``repro_torch.kernels.ssd_scan.ops.ssd_scan``) once per layer; the fourth
 is the Hymba-1.5B hybrid model's (attention and Mamba heads in every
-layer), whose prefill runs the same kernel once per layer.  Phases, any
-failure exits non-zero:
+layer), whose prefill runs the same kernel once per layer; the fifth is the
+MoE and multi-head latent attention decoders' (Qwen1.5-MoE-A2.7B,
+Arctic-480B, MiniCPM3-4B), whose paths hold no kernel.  Phases, any failure
+exits non-zero:
 
 1. build  — compile every kernel of the four paths from ``src/repro_torch/csrc``
    (one nvcc per source, started together); print the card's name and
@@ -93,7 +95,33 @@ failure exits non-zero:
    the attention caches in the decode path), each within
    ``_recurrence_tol``; phi-4-mini at full width and 4 layers, f32, its
    prefill of 2 x 1024 against 1024 decode steps.
-7. ops — phase 3's ResNet-18 f32 and VGG-16 f32 batch-1 forwards observed
+7. moe — Qwen1.5-MoE-A2.7B (``repro_torch.configs.qwen2_moe_a2_7b``) at
+   full width and depth, Arctic-480B at full width and 1 of its 35 layers,
+   MiniCPM3-4B at full width and depth, random weights from a seed, each
+   freed before the next, through the same entry points; every forward's
+   launch counts stay 0 (no kernel lies on these paths).  Qwen: layer 0's
+   MoE input captured from the bf16 prefill of 4 x 4096, routed once on
+   the card and dispatched both by the port (``dispatch_combine`` and the
+   expert einsums, at f32 from f32 copies of the expert weights) and by
+   ``moe_loop_reference``, a token-by-token loop of the capacity rule: the
+   dropped claims must be the same set and the outputs within
+   ``MOE_F32_TOL``; the bf16 prefill of 4 x 4096 (median of 3 after a
+   counted forward) and of 8 of the prefill_32k cell's 32 sequences of
+   32,768 tokens (median of ``MOE_TIMED_REPS``), each with its peak memory
+   and ``moe_ffn``'s share by CUDA events; decode ms a step at bf16,
+   batch 4; ``serve``; 4 layers at f32 with capacity factor E / k (no
+   drops), the forward of 2 x 512 against 512 decode steps at every
+   position within ``_recurrence_tol``.  Arctic: the same dispatch check
+   at bf16 (``MOE_BF16_TOL``), the layer's output minus its attention and
+   routed parts against the dense residual MLP, the timed prefill of
+   4 x 4096, decode and ``serve`` of the one layer.  MiniCPM3: the timed
+   prefill of 4 x 4096 (chunked MLA), decode with the latent cache's bytes
+   a token beside a GQA cache's of the same heads, ``serve``, at f32 one
+   sequence of 4096 through chunked MLA against its first 2048 through
+   dense MLA (62 layers), and 4 layers' forward of 2 x 1024 against 1024
+   decode steps.  Each check prints one ``moe {...}`` or ``mla {...}``
+   line.
+8. ops — phase 3's ResNet-18 f32 and VGG-16 f32 batch-1 forwards observed
    and guarded (``repro_torch.obs``, ``repro_torch.robust``): each traced
    three times (per forward a span per launch with a positive CUDA-event
    time on this card, logits and skip maps as the untraced forward's, the
@@ -118,7 +146,7 @@ failure exits non-zero:
    ``python -m repro_torch.obs.explain --model resnet18 --run --guard
    --trace FILE`` as a subprocess.  Its launches go on an ``ops launches``
    line of their own.
-8. serve — ResNet-18 at full width (224x224x3, 1000 classes, phase 3's
+9. serve — ResNet-18 at full width (224x224x3, 1000 classes, phase 3's
    params) through the serving engine (``repro_torch.net.serve``,
    ``ServeConfig(buckets=(1, 2, 4, 8))``, f32): two waves of the same
    seeded stream of 24 requests of 1-3 images, every request's logits
@@ -140,7 +168,7 @@ failure exits non-zero:
    as subprocesses, ``--dry-stream`` and ``--inject slow_launch
    --breaker 1 --watchdog 3``.  Its launches go on a ``serve launches``
    line of their own.
-9. results — one ``{"kernels": [...]}`` line (for the pyramid kernels
+10. results — one ``{"kernels": [...]}`` line (for the pyramid kernels
    ``launches`` sums the four forwards, ``launches_per_forward`` splits
    it, and every time sums the per-launch medians over the dense pyramids
    of the four plans; for the SOP kernel ``launches_per_layer`` splits
@@ -807,7 +835,9 @@ class Lm:
     ARCH = LM_ARCH
     PREFILL = LM_PREFILL
     TIMED = LM_TIMED
-    TIMED_REPS = 3
+    # timed forwards after the counted one; two, for the script's time
+    # limit (three runs spread 0.2 % on an H100 80GB HBM3 at 700 W)
+    TIMED_REPS = 2
 
     def __init__(self, torch, device):
         from repro_torch.configs import get_config
@@ -1265,7 +1295,9 @@ class Hybrid(Lm):
     TAG = "hybrid"
     ARCH = HY_ARCH
     TIMED = HY_TIMED
-    TIMED_REPS = 2
+    # one, for the script's time limit (two runs spread 0.002 % on an H100
+    # 80GB HBM3 at 700 W)
+    TIMED_REPS = 1
 
     def _check_counts(self, counts, n, what) -> None:
         if counts != self._expect(n):
@@ -1456,6 +1488,529 @@ class Hybrid(Lm):
         rows = [pre, full, dict(cell=f"chunked f32 1x{HY_CHUNKED}", launches=n),
                 dict(cell=f"dense f32 1x{HY_CHUNKED // 2}", launches=n), rec]
         return self.entry(pre, rows, name=f"{kd.SSD_SCAN.symbol}@{self.ARCH}")
+
+
+# ---- phase moe ------------------------------------------------------------
+
+
+def moe_loop_reference(xg, idx, w, p, capacity: int):
+    """The MoE dispatch rule written out, independent of the port's
+    one-hot dispatch: in each group the claims go in token order, then
+    choice order, each expert counts the claims made on it, and a claim
+    whose count is at or past ``capacity`` is dropped.  Each kept claim
+    adds its weight times its expert's SwiGLU of the token, computed in
+    float32 one expert at a time from ``p``'s weights.  ``xg (G, T, d)``,
+    ``idx`` and ``w (G, T, k)``.  Returns ``(y (G, T, d) float32, the set
+    of dropped claims (g, t, j))``."""
+    import torch
+    import torch.nn.functional as F
+
+    G, T, k = idx.shape
+    E = p["router"].shape[1]
+    choice = idx.tolist()
+    dropped = set()
+    kept = [[] for _ in range(E)]
+    for g in range(G):
+        count = [0] * E
+        for t in range(T):
+            for j in range(k):
+                e = choice[g][t][j]
+                if count[e] < capacity:
+                    kept[e].append((g, t, j))
+                else:
+                    dropped.add((g, t, j))
+                count[e] += 1
+    x = xg.float()
+    y = torch.zeros_like(x)
+    for e, claims in enumerate(kept):
+        if not claims:
+            continue
+        gi, ti, ji = (torch.tensor(c, device=x.device) for c in zip(*claims))
+        xe = x[gi, ti]
+        h = (F.silu(xe @ p["w_gate"][e].float()) * (xe @ p["w_up"][e].float())
+             ) @ p["w_down"][e].float()
+        y.index_put_((gi, ti), w[gi, ti, ji, None].float() * h,
+                     accumulate=True)
+    return y, dropped
+
+
+def dropped_claims(combine, idx) -> set:
+    """The claims ``(g, t, j)`` that a combine tensor ``(G, T, E, C)``
+    gives no slot of their chosen expert ``idx[g, t, j]``."""
+    sel = combine.gather(
+        2, idx[..., None].expand(*idx.shape, combine.shape[-1]))
+    gone = (sel != 0).sum(dim=-1) == 0
+    return {tuple(c) for c in gone.nonzero().tolist()}
+
+
+# Qwen1.5-MoE-A2.7B at full width and depth (24 layers, d_model 2048, 16
+# heads of 128, 60 routed experts of 1408 with top-4, 4 shared experts as
+# one SwiGLU of 5632, dispatch groups of 512 tokens, vocab 151,936),
+# Arctic-480B at full width and 1 of its 35 layers (d_model 7168, 56 query
+# and 8 KV heads of 128, 128 experts of 4864 with top-2, a dense residual
+# MLP of 4864, vocab 32,000; cut for memory: one layer with its embedding
+# and head is 14.07 B parameters, 28.1 GB at bf16, and init_params draws
+# each leaf in float32 beside the bf16 ones, so a second layer's 35.7 GB
+# f32 draw of the stacked experts would not fit), and MiniCPM3-4B at full
+# width and depth (62 layers, d_model 2560, 40 heads, MLA with q_lora 768,
+# kv_lora 256, d_nope 64, d_rope 32, d_v 64, d_ff 6400, vocab 73,448);
+# random weights from a seed, bf16 unless a check says f32.  No kernel lies
+# on these paths: every forward's launch counts stay 0.
+QWEN_ARCH = "qwen2_moe_a2_7b"
+ARCTIC_ARCH = "arctic_480b"
+ARCTIC_LAYERS = 1  # of 35
+MLA_ARCH = "minicpm3_4b"
+MOE_PREFILL = (4, 4096)  # bf16: layer 0's dispatch against the loop; timed
+MOE_TIMED = (8, 32768)  # bf16: Qwen's prefill_32k cell, 8 of 32 sequences
+MOE_TIMED_REPS = 2  # after the counted forward
+MOE_LAYERS = 4  # f32 prefill vs decode: of Qwen's 24 and MiniCPM3's 62
+MOE_RECURRENCE = (2, 512)  # f32, Qwen at capacity factor E / k: no drops
+MLA_RECURRENCE = (2, 1024)  # f32, MiniCPM3, through the latent cache
+MLA_CHUNKED = 4096  # f32, one sequence: chunked over 4096, dense over 2048
+MOE_DECODE = dict(batch=4, max_seq=2048, steps=64, warmup=4)  # bf16
+# The dispatch check's bound at bf16 (Arctic), relative to max|ref| of the
+# float32 loop, with no floor: the reference's fan-in rule counts the
+# stacked layer and expert dimensions, so at full width the routed
+# experts' outputs are of order 1e-5 to 1e-3, and a floor of 1 would pass
+# any output of that size.  bf16 keeps 8 significant bits (unit roundoff u =
+# 2^-8 relative).  Each kept term w h rounds w (u), h's intermediates gate,
+# silu(gate), up and their product (4u each, before the down projection
+# sums them with random signs), h itself (u), and the combined y (u): 8u =
+# 2^-5 of the output's size covers them with margin.  A misrouted or
+# misweighted claim errs by the output's own size, and the dropped sets are
+# compared exactly.
+MOE_BF16_TOL = 2.0 ** -5
+# At f32 (Qwen) the port and the loop sum the same products in another
+# order: 1e-4 of the output's size, as the pyramid checks' f32 bound.
+MOE_F32_TOL = 1e-4
+
+
+class MoePhase:
+    """Phase moe: the MoE family (Qwen1.5-MoE-A2.7B, Arctic-480B) and MLA
+    (MiniCPM3-4B) through the port's entry points.  Every check prints one
+    ``moe {...}`` or ``mla {...}`` line; a failed check raises."""
+
+    def __init__(self, torch, device):
+        self.torch = torch
+        self.device = device
+        self.summary = {"moe": {}, "mla": {}}
+
+    def _print(self, tag, key, row) -> None:
+        print(f"{tag} " + json.dumps(row), flush=True)
+        self.summary[tag][key] = row
+
+    def _tokens(self, cfg, shape, seed):
+        gen = self.torch.Generator(device=self.device).manual_seed(seed)
+        return self.torch.randint(0, cfg.vocab, shape, generator=gen,
+                                  device=self.device)
+
+    def _params(self, cfg):
+        from repro_torch.models.model import init_params
+
+        self.torch.cuda.empty_cache()
+        return init_params(cfg, 0, device=self.device)
+
+    @staticmethod
+    def _no_launches(what) -> None:
+        from repro_torch.kernels import build
+
+        counts = {k.symbol: k.launches for k in build.KERNELS}
+        if any(counts.values()):
+            raise AssertionError(f"{what}: launch counts {counts}; no kernel"
+                                 " lies on this path")
+
+    def _check_logits(self, logits, shape, what) -> float:
+        lg = logits.float()
+        if tuple(lg.shape) != shape or not bool(self.torch.isfinite(lg).all()):
+            raise AssertionError(f"{what}: logits {tuple(lg.shape)} not finite"
+                                 f" or not {shape}")
+        return float(lg.abs().max())
+
+    # ---- checks ----------------------------------------------------------
+
+    def capture_moe_input(self, cfg, params, shape, seed):
+        """The bf16 prefill of ``shape`` through ``make_prefill_step``,
+        counted (no launches), with layer 0's MoE input captured."""
+        from repro_torch.kernels import build
+        from repro_torch.launch.steps import make_prefill_step
+        from repro_torch.models import blocks
+
+        tokens = self._tokens(cfg, shape, seed)
+        seen = []
+        real = blocks.moe_ffn
+
+        def recording(p, x, **kw):
+            if not seen:
+                seen.append(x)
+            return real(p, x, **kw)
+
+        self.torch.cuda.synchronize()
+        blocks.moe_ffn = recording
+        try:
+            build.reset_launch_counts()
+            logits = make_prefill_step(cfg)(params, {"tokens": tokens})
+            self.torch.cuda.synchronize()
+        finally:
+            blocks.moe_ffn = real
+        self._no_launches(f"{cfg.name} prefill")
+        self._check_logits(logits, (shape[0], cfg.vocab), f"{cfg.name} prefill")
+        return seen[0]
+
+    def dispatch_check(self, cfg, p, xn, *, f32: bool) -> dict:
+        """Layer 0's MoE input routed once on the card, then that routing
+        through the port's ``dispatch_combine`` and expert einsums (at f32
+        from f32 copies of the expert weights, else at the config's bf16)
+        and through ``moe_loop_reference``: the dropped claims must be the
+        same set, the kept outputs within ``MOE_F32_TOL`` or
+        ``MOE_BF16_TOL`` of max|loop|."""
+        from repro_torch.models import moe
+
+        torch = self.torch
+        b, s, d = xn.shape
+        groups = max(1, b * s // cfg.moe_group_tokens)
+        tg = b * s // groups
+        xg = xn.reshape(groups, tg, d)
+        logits = torch.einsum("gtd,de->gte", xg.float(), p["router"].float())
+        idx, w = moe.route_topk(logits, cfg.top_k)
+        capacity = max(1, int(tg * cfg.top_k * cfg.capacity_factor)
+                       // cfg.n_experts)
+        pe, xd = p, xg
+        if f32:
+            pe = {k: p[k].float() for k in ("w_gate", "w_up", "w_down")}
+            xd = xg.float()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        disp, comb = moe.dispatch_combine(xd, idx, w, cfg.n_experts, capacity)
+        y = torch.einsum("gtec,gecd->gtd", comb, moe.experts(pe, disp))
+        torch.cuda.synchronize()
+        port_ms = (time.perf_counter() - t0) * 1e3
+        del disp, pe
+        dropped = dropped_claims(comb, idx)
+        del comb
+        t0 = time.perf_counter()
+        want, want_dropped = moe_loop_reference(xg, idx, w, p, capacity)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        dtype = "f32" if f32 else "bf16"
+        what = f"{cfg.name} dispatch {dtype}"
+        if dropped != want_dropped:
+            raise AssertionError(f"{what}: {len(dropped ^ want_dropped)} claims"
+                                 " dropped by one and not the other")
+        err = float((y.float() - want).abs().max())
+        tol = (MOE_F32_TOL if f32 else MOE_BF16_TOL) * float(want.abs().max())
+        if not (err <= tol and tol > 0):
+            raise AssertionError(f"{what}: err {err} > tol {tol}")
+        return dict(cell=f"dispatch {dtype}, layer 0 of a prefill {b}x{s}",
+                    model=cfg.name, groups=groups, capacity=capacity,
+                    claims=idx.numel(), dropped=len(dropped),
+                    dropped_share=len(dropped) / idx.numel(),
+                    max_abs_err=err, tol=tol,
+                    max_abs_y=float(want.abs().max()), port_ms=port_ms,
+                    loop_s=loop_s)
+
+    def timed_prefill(self, cfg, params, shape, seed, reps) -> dict:
+        """A counted forward of ``shape`` through ``make_prefill_step`` (no
+        launches; the peak memory since just before it), then the median
+        host time of ``reps`` forwards, each ``moe_ffn`` call's device time
+        taken by CUDA events around it, and its share."""
+        from repro_torch.kernels import build
+        from repro_torch.launch.steps import make_prefill_step
+        from repro_torch.models import blocks
+
+        torch = self.torch
+        tokens = self._tokens(cfg, shape, seed)
+        prefill = make_prefill_step(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        self._no_launches(f"{cfg.name} prefill {shape}")
+        mag = self._check_logits(logits, (shape[0], cfg.vocab),
+                                 f"{cfg.name} prefill {shape}")
+        del logits
+        spans = []
+        real = blocks.moe_ffn
+
+        def timed(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = real(*a, **kw)
+            ev[1].record()
+            spans.append(ev)
+            return out
+
+        fwd_ms, moe_ms = [], []
+        for _ in range(reps):
+            spans.clear()
+            blocks.moe_ffn = timed
+            try:
+                t0 = time.perf_counter()
+                prefill(params, {"tokens": tokens})
+                torch.cuda.synchronize()
+                fwd_ms.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                blocks.moe_ffn = real
+            moe_ms.append(sum(a.elapsed_time(b) for a, b in spans))
+        ms = statistics.median(fwd_ms)
+        row = dict(cell=f"prefill bf16 {shape[0]}x{shape[1]}", model=cfg.name,
+                   layers=cfg.n_layers, counted_forward_ms=first_ms,
+                   forward_ms=ms, forward_ms_runs=fwd_ms,
+                   tokens_per_s=shape[0] * shape[1] / ms * 1e3,
+                   peak_gb=peak_gb, max_abs_logit=mag)
+        if cfg.family == "moe":
+            row.update(moe_ffn_device_ms=statistics.median(moe_ms),
+                       moe_ffn_share=statistics.median(moe_ms) / ms)
+        return row
+
+    def decode(self, cfg, params) -> dict:
+        """Decode ms a step at bf16: one token for each of ``batch``
+        sequences, attention over the whole ``max_seq`` cache, the mean
+        over ``steps`` steps after ``warmup``, ended by a synchronize; no
+        launches."""
+        from repro_torch.kernels import build
+        from repro_torch.launch.steps import make_decode_step
+        from repro_torch.models.params import leaves
+        from repro_torch.models.serving import init_caches
+
+        torch = self.torch
+        b, S = MOE_DECODE["batch"], MOE_DECODE["max_seq"]
+        n, warm = MOE_DECODE["steps"], MOE_DECODE["warmup"]
+        tokens = self._tokens(cfg, (b, n + warm), 8)
+        caches = init_caches(cfg, b, S, device=self.device)
+        step = make_decode_step(cfg)
+        for t in range(warm):
+            step(params, tokens[:, t:t + 1], caches, t)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        for t in range(warm, warm + n):
+            logits, caches = step(params, tokens[:, t:t + 1], caches, t)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        self._no_launches(f"{cfg.name} decode")
+        self._check_logits(logits, (b, cfg.vocab), f"{cfg.name} decode")
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for t in leaves(caches))
+        return dict(cell=f"decode bf16 batch {b}, cache {S}", model=cfg.name,
+                    layers=cfg.n_layers, steps=n, ms_per_step=ms,
+                    tokens_per_s=b / ms * 1e3,
+                    cache_bytes_per_token=cache_bytes / (b * S))
+
+    def serve(self, cfg) -> dict:
+        """``serve`` of ``cfg`` at full width and bf16 answers its requests
+        with valid token ids."""
+        from repro_torch.launch.serve import serve
+
+        self.torch.cuda.empty_cache()
+        gen, tps = serve(cfg, reduced=False, device=self.device, **LM_SERVE)
+        want = (LM_SERVE["batch"], LM_SERVE["new_tokens"])
+        if (tuple(gen.shape) != want or int(gen.min()) < 0
+                or int(gen.max()) >= cfg.vocab):
+            raise AssertionError(f"{cfg.name} serve: tokens {tuple(gen.shape)}"
+                                 f" in [{int(gen.min())}, {int(gen.max())}]")
+        return dict(cell="serve bf16", model=cfg.name, layers=cfg.n_layers,
+                    **LM_SERVE, tokens_per_s=tps)
+
+    def prefill_vs_decode(self, cfg, shape, seed) -> dict:
+        """At f32: the forward's logits at every position (dense attention)
+        against as many decode steps over the same tokens, within
+        ``_recurrence_tol``; no launches."""
+        from repro_torch.kernels import build
+        from repro_torch.launch.steps import make_decode_step
+        from repro_torch.models.model import forward
+        from repro_torch.models.serving import init_caches
+
+        torch = self.torch
+        params = self._params(cfg)
+        b, T = shape
+        tokens = self._tokens(cfg, shape, seed)
+        build.reset_launch_counts()
+        want, _ = forward(cfg, params, tokens, mode="prefill")
+        step = make_decode_step(cfg)
+        caches = init_caches(cfg, b, T, device=self.device)
+        errs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(T):
+            got, caches = step(params, tokens[:, t:t + 1], caches, t)
+            errs.append((got - want[:, t]).abs().amax())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        self._no_launches(f"{cfg.name} f32 prefill vs decode")
+        err = float(torch.stack(errs).max())
+        tol = _recurrence_tol(want)
+        if not (err <= tol and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{cfg.name} f32: prefill vs {T} decode steps,"
+                                 f" err {err} > tol {tol}")
+        row = dict(cell=(f"prefill f32 {b}x{T} vs {T} decode steps,"
+                         f" {cfg.n_layers} layers"), model=cfg.name,
+                   logits_max_abs_err=err,
+                   last_position_max_abs_err=float(errs[-1]), tol=tol,
+                   max_abs_logit=float(want.abs().max()),
+                   decode_ms_per_token=seconds * 1e3 / T)
+        if cfg.family == "moe":
+            row["capacity_factor"] = cfg.capacity_factor
+        return row
+
+    def dense_residual(self, cfg, p, x) -> dict:
+        """Arctic's layer on its input ``x``: the output minus the
+        attention's and the routed experts' parts equals the dense
+        residual MLP on the same normed input.  Two bf16 sums build the
+        output, y = routed + dense and x1 + y, each rounded by at most u =
+        2^-8 of its size, so the difference errs by at most 2^-7 of the
+        largest part; the bound is twice that, 2^-6, and the dense part
+        must exceed it twice over for the check to have teeth."""
+        from repro_torch.models import blocks as B
+        from repro_torch.models.moe import moe_ffn
+
+        ctx = B.LayerCtx(mode="prefill", chunked=True)
+        out, _ = B.moe_layer(cfg, p, x, ctx)
+        xa = B._norm(cfg, x, p["attn_norm"])
+        h, _ = B._self_attention(cfg, p["attn"], xa, ctx, None)
+        x1 = x + h
+        xn = B._norm(cfg, x1, p["ffn_norm"])
+        tokens = x.shape[0] * x.shape[1]
+        routed, _ = moe_ffn(p["moe"], xn, n_experts=cfg.n_experts,
+                            top_k=cfg.top_k,
+                            capacity_factor=cfg.capacity_factor,
+                            groups=max(1, tokens // cfg.moe_group_tokens))
+        dense = B._ffn(cfg, p["dense"], xn)
+        rest = out.float() - x1.float() - routed.float()
+        err = float((rest - dense.float()).abs().max())
+        mag = float(dense.abs().max())
+        tol = 2.0 ** -6 * max(1.0, float(out.abs().max()),
+                              float(routed.abs().max()) + mag)
+        if not (err <= tol and mag > 2 * tol):
+            raise AssertionError(f"{cfg.name} dense residual: err {err} (tol"
+                                 f" {tol}), max|dense| {mag}")
+        return dict(cell="dense residual, layer 0", model=cfg.name,
+                    max_abs_err=err, tol=tol, max_abs_dense=mag,
+                    max_abs_routed=float(routed.abs().max()),
+                    max_abs_out=float(out.abs().max()))
+
+    def chunked_vs_dense(self, cfg) -> dict:
+        """At f32, full depth: one sequence of ``MLA_CHUNKED`` tokens
+        through chunked MLA against its first half through dense MLA, the
+        logits at the shared positions within ``_recurrence_tol``."""
+        from repro_torch.kernels import build
+        from repro_torch.models.model import forward
+
+        torch = self.torch
+        params = self._params(cfg)
+        tokens = self._tokens(cfg, (1, MLA_CHUNKED), 7)
+        half = MLA_CHUNKED // 2
+        build.reset_launch_counts()
+        chunked, _ = forward(cfg, params, tokens, mode="prefill", chunked=True)
+        dense, _ = forward(cfg, params, tokens[:, :half], mode="prefill",
+                           chunked=False)
+        self._no_launches(f"{cfg.name} chunked vs dense")
+        err = float((chunked[:, :half] - dense).abs().max())
+        tol = _recurrence_tol(dense)
+        if not (err <= tol and bool(torch.isfinite(chunked).all())):
+            raise AssertionError(f"{cfg.name} f32: chunked vs dense MLA err"
+                                 f" {err} > tol {tol}")
+        return dict(cell=f"chunked f32 1x{MLA_CHUNKED} vs dense 1x{half}",
+                    model=cfg.name, layers=cfg.n_layers,
+                    logits_max_abs_err=err, tol=tol,
+                    max_abs_logit=float(dense.abs().max()))
+
+    # ---- the three models ------------------------------------------------
+
+    def qwen(self) -> None:
+        import dataclasses
+
+        from repro_torch.configs import get_config
+        from repro_torch.models.params import tree_map
+
+        cfg = get_config(QWEN_ARCH)
+        params = self._params(cfg)
+        xn = self.capture_moe_input(cfg, params, MOE_PREFILL, 3)
+        p0 = tree_map(lambda t: t[0], params["layers"]["moe"])
+        self._print("moe", "qwen_dispatch_f32",
+                    self.dispatch_check(cfg, p0, xn, f32=True))
+        del xn, p0
+        self.torch.cuda.empty_cache()
+        self._print("moe", "qwen_prefill_bf16",
+                    self.timed_prefill(cfg, params, MOE_PREFILL, 3, 3))
+        self.torch.cuda.empty_cache()
+        row = self.timed_prefill(cfg, params, MOE_TIMED, 6, MOE_TIMED_REPS)
+        row["cell"] += " (prefill_32k)"
+        self._print("moe", "qwen_prefill_32k", row)
+        self.torch.cuda.empty_cache()
+        self._print("moe", "qwen_decode_bf16", self.decode(cfg, params))
+        del params
+        self._print("moe", "qwen_serve_bf16", self.serve(cfg))
+        cut = dataclasses.replace(
+            cfg, n_layers=MOE_LAYERS, dtype="float32",
+            capacity_factor=cfg.n_experts / cfg.top_k)
+        self._print("moe", "qwen_recurrence_f32",
+                    self.prefill_vs_decode(cut, MOE_RECURRENCE, 4))
+
+    def arctic(self) -> None:
+        import dataclasses
+
+        from repro_torch.configs import get_config
+        from repro_torch.models.params import tree_map
+
+        cfg = dataclasses.replace(get_config(ARCTIC_ARCH),
+                                  n_layers=ARCTIC_LAYERS)
+        params = self._params(cfg)
+        xn = self.capture_moe_input(cfg, params, MOE_PREFILL, 3)
+        p0 = tree_map(lambda t: t[0], params["layers"])
+        self._print("moe", "arctic_dispatch_bf16",
+                    self.dispatch_check(cfg, p0["moe"], xn, f32=False))
+        del xn
+        self.torch.cuda.empty_cache()
+        # the one layer's input is the embedding of the prefill's tokens
+        tokens = self._tokens(cfg, MOE_PREFILL, 3)
+        x = params["embed"][tokens].to(self.torch.bfloat16)
+        self._print("moe", "arctic_dense_residual",
+                    self.dense_residual(cfg, p0, x))
+        del x, p0
+        self.torch.cuda.empty_cache()
+        self._print("moe", "arctic_prefill_bf16",
+                    self.timed_prefill(cfg, params, MOE_PREFILL, 3, 3))
+        self.torch.cuda.empty_cache()
+        self._print("moe", "arctic_decode_bf16", self.decode(cfg, params))
+        del params
+        self._print("moe", "arctic_serve_bf16", self.serve(cfg))
+
+    def minicpm3(self) -> None:
+        import dataclasses
+
+        from repro_torch.configs import get_config
+
+        cfg = get_config(MLA_ARCH)
+        params = self._params(cfg)
+        self._print("mla", "prefill_bf16",
+                    self.timed_prefill(cfg, params, MOE_PREFILL, 3, 3))
+        self.torch.cuda.empty_cache()
+        row = self.decode(cfg, params)
+        d_k = cfg.d_nope + cfg.d_rope
+        row["gqa_cache_bytes_per_token"] = (
+            (d_k + cfg.d_v) * cfg.n_heads * 2 * cfg.n_layers)
+        self._print("mla", "decode_bf16", row)
+        del params
+        self._print("mla", "serve_bf16", self.serve(cfg))
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        self._print("mla", "chunked_vs_dense_f32", self.chunked_vs_dense(f32))
+        self.torch.cuda.empty_cache()
+        self._print("mla", "recurrence_f32", self.prefill_vs_decode(
+            dataclasses.replace(f32, n_layers=MOE_LAYERS), MLA_RECURRENCE, 4))
+
+    def run(self) -> dict:
+        t0 = time.perf_counter()
+        for model in (self.qwen, self.arctic, self.minicpm3):
+            model()
+            self.torch.cuda.empty_cache()
+        self.summary["seconds"] = time.perf_counter() - t0
+        print(f"phase moe: {self.summary['seconds']:.1f} s", flush=True)
+        return self.summary
 
 
 # ---- phase ops ------------------------------------------------------------
@@ -2420,6 +2975,8 @@ def main(argv=None) -> int:
         hybrid = Hybrid(torch, device)
         ssd_hybrid = hybrid.run()
         torch.cuda.empty_cache()
+        moe = MoePhase(torch, device).run()
+        torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tmp:
             ops = Ops(smoke, Path(tmp) if args.out is None
                       else args.out.parent).run()
@@ -2451,6 +3008,7 @@ def main(argv=None) -> int:
                 sop=smoke.sop_rows,
                 lm=lm.summary,
                 hybrid=hybrid.summary,
+                moe=moe,
                 ops=ops,
                 serve=serve,
                 seconds=time.perf_counter() - t0,

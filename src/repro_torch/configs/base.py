@@ -3,9 +3,9 @@
 The port of the reference's ``repro.configs.base``, fields unchanged.  One
 config file per ported architecture lives next to this module; each exposes
 ``CONFIG``.  ``get_config(name)`` resolves from the registry, which lists
-only the architectures whose family the port runs (the dense, hybrid and
-SSM families so far); ``cfg.reduced()`` builds the family-preserving small
-config used by the CPU tests.
+only the architectures whose family the port runs (the MoE, dense (GQA or
+MLA attention), hybrid and SSM families so far); ``cfg.reduced()`` builds
+the family-preserving small config used by the CPU tests.
 """
 
 from __future__ import annotations
@@ -92,6 +92,17 @@ class ArchConfig:
 
         return sum(math.prod(s.shape) for s in leaves(build_param_specs(self)))
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: routed experts count top_k/E)."""
+        total = self.param_count()
+        if not self.n_experts:
+            return total
+        expert_p = (
+            self.n_layers * self.n_experts * 3 * self.d_model * self.moe_d_ff
+        )
+        active_expert_p = expert_p * self.top_k / self.n_experts
+        return int(total - expert_p + active_expert_p)
+
     def reduced(self) -> "ArchConfig":
         """Family-preserving tiny config for CPU smoke tests."""
         return replace(
@@ -128,9 +139,12 @@ class ArchConfig:
         )
 
 
-# the ported architectures, in the reference's order; its other six need
-# MLA, MoE, cross-attention or an encoder, which the port does not have yet
+# the ported architectures, in the reference's order; its other two need
+# cross-attention or an encoder, which the port does not have yet
 ARCH_IDS = (
+    "arctic_480b",
+    "qwen2_moe_a2_7b",
+    "minicpm3_4b",
     "deepseek_7b",
     "glm4_9b",
     "phi4_mini_3_8b",

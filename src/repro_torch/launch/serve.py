@@ -19,21 +19,22 @@ import time
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ArchConfig, get_config
 from repro_torch.core import resolve_device
 from repro_torch.models.model import init_params
 from repro_torch.models.serving import decode_step, init_caches
 
 
-def serve(arch: str, *, batch: int = 4, prompt_len: int = 8,
+def serve(arch: str | ArchConfig, *, batch: int = 4, prompt_len: int = 8,
           new_tokens: int = 24, reduced: bool = True, seed: int = 0,
           device=None) -> tuple[torch.Tensor, float]:
     """Decode ``new_tokens`` greedy tokens after random ``prompt_len``-token
-    prompts for ``batch`` sequences.  Returns ``(tokens (batch,
-    new_tokens), tokens/s)``, the rate over the whole loop (prompt steps
-    included), ended by a device synchronize."""
+    prompts for ``batch`` sequences of ``arch``, an architecture id or a
+    config (one cut in depth to fit a card, say).  Returns ``(tokens
+    (batch, new_tokens), tokens/s)``, the rate over the whole loop (prompt
+    steps included), ended by a device synchronize."""
     dev = resolve_device(device)
-    cfg = get_config(arch)
+    cfg = get_config(arch) if isinstance(arch, str) else arch
     if reduced:
         cfg = cfg.reduced()
     params = init_params(cfg, seed, device=dev)

@@ -1,12 +1,15 @@
 """Per-family layer bodies.
 
-The port of the reference's ``repro.models.blocks``, cut to the dense,
-hybrid and SSM families.  Every body has the signature ``(cfg, p, x, ctx,
-cache) -> (x, new_cache)``, where ``ctx`` is a :class:`LayerCtx` carrying
-the mode and the attention switches; :mod:`repro_torch.models.model` loops
-the bodies over stacked params.  The reference's per-layer aux loss is
-gone: no layer of these families produces one.  LayerNorm, the GELU MLP and
-MLA raise ``NotImplementedError``: no ported config uses them.
+The port of the reference's ``repro.models.blocks``, cut to the dense
+(GQA or MLA attention), MoE, hybrid and SSM families.  Every body has the
+signature ``(cfg, p, x, ctx, cache) -> (x, new_cache)``, where ``ctx`` is a
+:class:`LayerCtx` carrying the mode and the attention switches;
+:mod:`repro_torch.models.model` loops the bodies over stacked params.  The
+reference's bodies also return a per-layer aux loss, which only its
+training loss reads: :func:`moe_layer` computes it (through
+:func:`~repro_torch.models.moe.moe_ffn`) and drops it until the port has
+training.  LayerNorm and the GELU MLP raise ``NotImplementedError``: no
+ported config uses them.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
-from .layers import gqa_attention, rms_norm, swiglu
+from .layers import gqa_attention, mla_attention, rms_norm, swiglu
+from .moe import moe_ffn
 from .ssm import mamba2_mixer
 
 
@@ -44,6 +48,21 @@ def _ffn(cfg, p, x):
 
 
 def _self_attention(cfg, p, x, ctx: LayerCtx, cache):
+    if cfg.attn_kind == "mla":
+        return mla_attention(
+            p,
+            x,
+            n_heads=cfg.n_heads,
+            d_nope=cfg.d_nope,
+            d_rope=cfg.d_rope,
+            d_v=cfg.d_v,
+            rope_theta=cfg.rope_theta,
+            kv_cache=cache,
+            cache_index=ctx.cache_index,
+            chunked=ctx.chunked,
+            q_chunk=cfg.attn_chunk,
+            kv_chunk=cfg.attn_chunk,
+        )
     if cfg.attn_kind != "gqa":
         raise _unported(f"attn_kind={cfg.attn_kind!r}")
     return gqa_attention(
@@ -69,12 +88,40 @@ def _self_attention(cfg, p, x, ctx: LayerCtx, cache):
 
 
 def dense_layer(cfg, p, x, ctx: LayerCtx, cache=None):
-    """Pre-norm dense block (deepseek / glm4 / phi4 / llama)."""
+    """Pre-norm dense block (deepseek / glm4 / phi4 / minicpm3 / llama)."""
     h, new_cache = _self_attention(
         cfg, p["attn"], _norm(cfg, x, p["attn_norm"]), ctx, cache)
     x = x + h
     x = x + _ffn(cfg, p["ffn"], _norm(cfg, x, p["ffn_norm"]))
     return x, new_cache
+
+
+def moe_layer(cfg, p, x, ctx: LayerCtx, cache=None):
+    """MoE block: attention + routed experts (+ shared experts when
+    ``n_shared_experts``, + a dense residual MLP when ``dense_residual``),
+    all three on the same normed input.  The tokens split into ``max(1,
+    tokens // cfg.moe_group_tokens)`` dispatch groups.  The load-balance
+    aux that :func:`moe_ffn` returns is dropped: serving never reads it,
+    and the training slice brings back the reference's ``(x, cache, aux)``
+    bodies."""
+    h, new_cache = _self_attention(
+        cfg, p["attn"], _norm(cfg, x, p["attn_norm"]), ctx, cache)
+    x = x + h
+    xn = _norm(cfg, x, p["ffn_norm"])
+    tokens = xn.shape[0] * xn.shape[1]
+    y, _aux = moe_ffn(
+        p["moe"],
+        xn,
+        n_experts=cfg.n_experts,
+        top_k=cfg.top_k,
+        capacity_factor=cfg.capacity_factor,
+        groups=max(1, tokens // cfg.moe_group_tokens),
+    )
+    if cfg.n_shared_experts:
+        y = y + _ffn(cfg, p["shared"], xn)
+    if cfg.dense_residual:
+        y = y + _ffn(cfg, p["dense"], xn)
+    return x + y, new_cache
 
 
 def ssm_layer(cfg, p, x, ctx: LayerCtx, cache=None):

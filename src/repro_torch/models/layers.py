@@ -1,8 +1,8 @@
-"""Transformer building blocks of the port: RMSNorm, SwiGLU, RoPE and GQA
-attention.
+"""Transformer building blocks of the port: RMSNorm, SwiGLU, RoPE, GQA
+attention and multi-head latent attention (MLA).
 
 The port of the reference's ``repro.models.layers``, cut to what the dense,
-hybrid and SSM families run (its layernorm, GELU MLP and MLA wait for the
+MoE, hybrid and SSM families run (its layernorm and GELU MLP wait for the
 families that need them).  Every block is a plain function of tensors, with
 the reference's cast order: attention scores in float32, masked with the
 finite :data:`NEG_INF`, softmaxed in float32 and cast back to the inputs'
@@ -16,9 +16,10 @@ Attention comes in two dataflows, as in the reference:
   its causal and window masks leave live; the reference's ``lax.scan``
   over key blocks is a Python loop.
 
-Decode attention (:func:`gqa_attention` with a cache) writes the new keys
-and values into the cache **in place** and attends over the whole cache
-with position masks, where the reference returns an updated cache.
+Decode attention (:func:`gqa_attention` or :func:`mla_attention` with a
+cache) writes the new keys and values (MLA: the latent and the shared RoPE
+key) into the cache **in place** and attends over the whole cache with
+position masks, where the reference returns an updated cache.
 """
 
 from __future__ import annotations
@@ -269,5 +270,86 @@ def gqa_attention(
             )
         else:
             out = dense_attention(q, k, v, causal=causal, window=window)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, MiniCPM3 / DeepSeek-V2 style)
+# ---------------------------------------------------------------------------
+
+
+def mla_attention(
+    p,
+    x,
+    *,
+    n_heads: int,
+    d_nope: int,
+    d_rope: int,
+    d_v: int,
+    rope_theta: float,
+    kv_cache=None,
+    cache_index=None,
+    chunked: bool = False,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+):
+    """Multi-head latent attention with a compressed KV cache.
+
+    The queries pass a low-rank bottleneck with an RMSNorm; the cache holds
+    only the normed latent ``c_kv`` (kv_lora) and one RoPE key shared by
+    all heads (d_rope) a position, and K/V are re-expanded from it on every
+    call.  RoPE rotates ``q_rope`` and the shared key only; the scale is
+    ``(d_nope + d_rope) ** -0.5``.  ``kv_cache``: optional dict(ckv=(B,
+    Smax, kv_lora), krope=(B, Smax, d_rope)), written in place at
+    ``cache_index``.  Returns ``(out, new_cache)`` as :func:`gqa_attention`.
+    The reference's ``q_lora`` and ``kv_lora`` arguments, which it does not
+    read (the params carry those widths), are not ported.
+    """
+    b, s, _ = x.shape
+    # --- queries through the low-rank bottleneck ---
+    cq = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wq_a"]), p["q_norm"])
+    q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"])  # (B,S,H,d_nope+d_rope)
+    q_nope, q_rope = q[..., :d_nope], q[..., d_nope:]
+    # --- compressed kv + shared rope key ---
+    ckv = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wkv_a"]), p["kv_norm"])
+    krope = torch.einsum("bsd,dk->bsk", x, p["wk_rope"])  # (B,S,d_rope)
+
+    positions = torch.arange(s, device=x.device)
+    if cache_index is not None:
+        positions = positions + cache_index
+    q_rope = apply_rope(q_rope, positions, rope_theta)
+    krope = apply_rope(krope[:, :, None, :], positions, rope_theta)[:, :, 0]
+
+    if kv_cache is not None:
+        ckv_c, kr_c = kv_cache["ckv"], kv_cache["krope"]
+        ckv_c[:, cache_index:cache_index + s] = ckv.to(ckv_c.dtype)
+        kr_c[:, cache_index:cache_index + s] = krope.to(kr_c.dtype)
+        new_cache = {"ckv": ckv_c, "krope": kr_c}
+        ckv_full, krope_full = ckv_c.to(x.dtype), kr_c.to(x.dtype)
+    else:
+        new_cache = None
+        ckv_full, krope_full = ckv, krope
+
+    # expand the latent to per-head K/V
+    k_nope = torch.einsum("bsr,rhk->bshk", ckv_full, p["wk_b"])
+    vfull = torch.einsum("bsr,rhk->bshk", ckv_full, p["wv_b"])
+    skv = ckv_full.shape[1]
+    kr = krope_full[:, :, None, :].expand(b, skv, n_heads, d_rope)
+    k = torch.cat([k_nope, kr], dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+
+    if kv_cache is not None:
+        scale = (d_nope + d_rope) ** -0.5
+        logits = torch.einsum("bqhd,bkhd->bhqk", qf, k).to(torch.float32) * scale
+        mask = torch.arange(skv, device=x.device)[None, :] <= positions[:, None]
+        logits = logits.masked_fill(~mask[None, None], NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, vfull)
+    elif chunked:
+        out = chunked_attention(qf, k, vfull, causal=True, q_chunk=q_chunk,
+                                kv_chunk=kv_chunk)
+    else:
+        out = dense_attention(qf, k, vfull, causal=True)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, new_cache

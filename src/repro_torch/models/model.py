@@ -2,17 +2,18 @@
 
 The port of the reference's ``repro.models.model`` for the decoder
 families with RMSNorm and an untied head: ``ssm`` (Mamba-2, one
-``ssm_layer`` a layer), ``dense`` (``dense_layer``) and ``hybrid`` (Hymba:
-``hybrid_layer``, attention and Mamba heads in parallel, run in
-order-faithful segments of global full-attention layers and sliding-window
-layers).  The reference's ``lax.scan`` over a stack of ``(L, ...)`` params
-is a Python loop over the leading dimension; its sharding constraints and
-remat are gone (one GPU, no training in the port yet), and so is the
-aux-loss sum, which no layer of these families produces: :func:`forward`
-returns ``(logits, caches)`` where the reference returns ``(logits, aux,
-caches)``.  Caches are updated in place.  Other families (MoE, VLM,
-encoder-decoder), layernorm, GELU, MLA and tied embeddings raise
-``NotImplementedError``: no ported config uses them.
+``ssm_layer`` a layer), ``dense`` (``dense_layer``, GQA or MLA
+attention), ``moe`` (``moe_layer``: routed experts with shared experts or
+a dense residual MLP) and ``hybrid`` (Hymba: ``hybrid_layer``, attention
+and Mamba heads in parallel, run in order-faithful segments of global
+full-attention layers and sliding-window layers).  The reference's
+``lax.scan`` over a stack of ``(L, ...)`` params is a Python loop over the
+leading dimension; its sharding constraints and remat are gone (one GPU,
+no training in the port yet), and so is the aux-loss sum, which only
+training reads: :func:`forward` returns ``(logits, caches)`` where the
+reference returns ``(logits, aux, caches)``.  Caches are updated in place.
+Other families (VLM, encoder-decoder), layernorm, GELU and tied embeddings
+raise ``NotImplementedError``: no ported config uses them.
 """
 
 from __future__ import annotations
@@ -25,24 +26,24 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import resolve_device
 
 from . import params as prm
-from .blocks import LayerCtx, dense_layer, hybrid_layer, ssm_layer
+from .blocks import LayerCtx, dense_layer, hybrid_layer, moe_layer, ssm_layer
 from .layers import rms_norm
 from .params import P, stack_specs, tree_map
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-_BODY = {"dense": dense_layer, "ssm": ssm_layer, "hybrid": hybrid_layer}
+_BODY = {"dense": dense_layer, "moe": moe_layer, "ssm": ssm_layer,
+         "hybrid": hybrid_layer}
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    got = (cfg.family, cfg.kind, cfg.norm, cfg.tie_embeddings,
-           cfg.attn_kind, cfg.act)
-    if (cfg.family not in _BODY
-            or got[1:] != ("decoder", "rmsnorm", False, "gqa", "swiglu")):
+    got = (cfg.family, cfg.kind, cfg.norm, cfg.tie_embeddings, cfg.act)
+    if (cfg.family not in _BODY or cfg.attn_kind not in ("gqa", "mla")
+            or got[1:] != ("decoder", "rmsnorm", False, "swiglu")):
         raise NotImplementedError(
-            f"{cfg.name}: (family, kind, norm, tie_embeddings, attn_kind,"
-            f" act) = {got} is not ported yet; the port runs the"
-            f" {sorted(_BODY)} families' decoders with rmsnorm, GQA"
-            " attention, SwiGLU and an untied head"
+            f"{cfg.name}: (family, kind, norm, tie_embeddings, act) = {got}"
+            f" with attn_kind={cfg.attn_kind!r} is not ported yet; the port"
+            f" runs the {sorted(_BODY)} families' decoders with rmsnorm,"
+            " GQA or MLA attention, SwiGLU and an untied head"
         )
 
 
@@ -57,11 +58,20 @@ def _layer_specs(cfg: ArchConfig) -> dict:
     if cfg.family == "ssm":
         return {"norm": P((d,), (None,), "one"),
                 "mixer": prm.mamba_specs(cfg)}
-    s = {"attn_norm": P((d,), (None,), "one"), "attn": prm.gqa_specs(cfg)}
+    s = {"attn_norm": P((d,), (None,), "one"),
+         "attn": (prm.mla_specs(cfg) if cfg.attn_kind == "mla"
+                  else prm.gqa_specs(cfg))}
     if cfg.family == "hybrid":
         s["mixer"] = prm.mamba_specs(cfg)
     s["ffn_norm"] = P((d,), (None,), "one")
-    s["ffn"] = prm.swiglu_specs(d, cfg.d_ff)
+    if cfg.family == "moe":
+        s["moe"] = prm.moe_specs(cfg)
+        if cfg.n_shared_experts:
+            s["shared"] = prm.swiglu_specs(d, cfg.d_ff)
+        if cfg.dense_residual:
+            s["dense"] = prm.swiglu_specs(d, cfg.d_ff)
+    else:
+        s["ffn"] = prm.swiglu_specs(d, cfg.d_ff)
     return s
 
 

@@ -1,9 +1,10 @@
 """Parameter specs: one source of truth for shapes and init scales.
 
 The port of the reference's ``repro.models.params``, cut to what the SSM,
-dense and hybrid families need.  Every leaf is declared as ``P(shape,
-axes, scale)``; the tree drives real initialization (truncated normal
-with fan-in scaling, from an explicit ``torch.Generator``).  The logical
+dense (GQA or MLA attention), MoE and hybrid families need.  Every leaf is
+declared as ``P(shape, axes, scale)``; the tree drives real initialization
+(truncated normal with fan-in scaling, from an explicit
+``torch.Generator``).  The logical
 ``axes`` are kept for parity with the reference's specs; one GPU resolves
 none of them.
 
@@ -85,11 +86,38 @@ def gqa_specs(cfg) -> dict:
     }
 
 
+def mla_specs(cfg) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.d_nope, cfg.d_rope, cfg.d_v
+    return {
+        "wq_a": P((d, r_q), ("embed", "lora")),
+        "q_norm": P((r_q,), (None,), "one"),
+        "wq_b": P((r_q, H, dn + dr), ("lora", "heads", None)),
+        "wkv_a": P((d, r_kv), ("embed", "lora")),
+        "kv_norm": P((r_kv,), (None,), "one"),
+        "wk_rope": P((d, dr), ("embed", None)),
+        "wk_b": P((r_kv, H, dn), ("lora", "heads", None)),
+        "wv_b": P((r_kv, H, dv), ("lora", "heads", None)),
+        "wo": P((H, dv, d), ("heads", None, "embed")),
+    }
+
+
 def swiglu_specs(d: int, f: int) -> dict:
     return {
         "w_gate": P((d, f), ("embed", "mlp")),
         "w_up": P((d, f), ("embed", "mlp")),
         "w_down": P((f, d), ("mlp", "embed")),
+    }
+
+
+def moe_specs(cfg) -> dict:
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    return {
+        "router": P((d, E), ("embed", None)),
+        "w_gate": P((E, d, f), ("experts", "embed", None)),
+        "w_up": P((E, d, f), ("experts", "embed", None)),
+        "w_down": P((E, f, d), ("experts", None, "embed")),
     }
 
 

@@ -1,9 +1,11 @@
 """Serving substrate: cache specs, init, and the decode step.
 
-The port of the reference's ``repro.models.serving`` for the dense, hybrid
-and SSM families.  Cache layouts per family:
+The port of the reference's ``repro.models.serving`` for the dense, MoE,
+hybrid and SSM families.  Cache layouts per family:
 
-* GQA (dense): k/v  (L, B, S_max, H_kv, D_h)
+* GQA (dense, MoE): k/v  (L, B, S_max, H_kv, D_h)
+* MLA (dense):  ckv (L, B, S_max, kv_lora) + krope (L, B, S_max, d_rope),
+          the latent and the shared RoPE key, not per-head K/V
 * SSM:    conv (L, B, K-1, conv_ch) + state (L, B, H, P, N) — O(1) in S
 * hybrid: 'global' and 'sliding' stacks (3 and 29 layers at Hymba-1.5B),
           each {'attn': GQA k/v, 'ssm': conv/state}
@@ -37,6 +39,14 @@ def _gqa_cache(cfg, L, B, S) -> dict:
     }
 
 
+def _mla_cache(cfg, L, B, S) -> dict:
+    ax = ("layers", "batch", "cache_seq", None)
+    return {
+        "ckv": P((L, B, S, cfg.kv_lora_rank), ax, "zero"),
+        "krope": P((L, B, S, cfg.d_rope), ax, "zero"),
+    }
+
+
 def _ssm_cache(cfg, L, B) -> dict:
     di = cfg.ssm_heads * cfg.ssm_head_dim
     conv_ch = di + 2 * cfg.ssm_state
@@ -67,6 +77,8 @@ def build_cache_specs(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
             "sliding": {"attn": _gqa_cache(cfg, n_s, B, S),
                         "ssm": _ssm_cache(cfg, n_s, B)},
         }
+    if cfg.attn_kind == "mla":
+        return _mla_cache(cfg, L, B, S)
     return _gqa_cache(cfg, L, B, S)
 
 

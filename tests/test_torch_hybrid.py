@@ -300,8 +300,7 @@ def test_unported_pieces_raise(pair):
     x = torch.zeros(1, 16, cfg.d_model)
     p = tree_map(lambda t: t[0], params["global"])
     ctx = B.LayerCtx()
-    for change in (dict(norm="layernorm"), dict(act="gelu"),
-                   dict(attn_kind="mla")):
+    for change in (dict(norm="layernorm"), dict(act="gelu")):
         with pytest.raises(NotImplementedError, match="not ported"):
             B.hybrid_layer(dataclasses.replace(cfg, **change), p, x, ctx)
 
