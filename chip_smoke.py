@@ -18,8 +18,9 @@ prefill and decode, whose prefill runs the SSD chunk scan
 is the Hymba-1.5B hybrid model's (attention and Mamba heads in every
 layer), whose prefill runs the same kernel once per layer; the fifth is the
 MoE and multi-head latent attention decoders' (Qwen1.5-MoE-A2.7B,
-Arctic-480B, MiniCPM3-4B), whose paths hold no kernel.  Phases, any failure
-exits non-zero:
+Arctic-480B, MiniCPM3-4B), and the sixth the vision-language and
+encoder-decoder models' (Llama-3.2-11B-Vision, Whisper-large-v3); these two
+paths hold no kernel.  Phases, any failure exits non-zero:
 
 1. build  — compile every kernel of the four paths from ``src/repro_torch/csrc``
    (one nvcc per source, started together); print the card's name and
@@ -107,7 +108,8 @@ exits non-zero:
    dropped claims must be the same set and the outputs within
    ``MOE_F32_TOL``; the bf16 prefill of 4 x 4096 (median of 3 after a
    counted forward) and of 8 of the prefill_32k cell's 32 sequences of
-   32,768 tokens (median of ``MOE_TIMED_REPS``), each with its peak memory
+   32,768 tokens (``MOE_TIMED_REPS`` timed forwards, one), each with its
+   peak memory
    and ``moe_ffn``'s share by CUDA events; decode ms a step at bf16,
    batch 4; ``serve``; 4 layers at f32 with capacity factor E / k (no
    drops), the forward of 2 x 512 against 512 decode steps at every
@@ -121,7 +123,27 @@ exits non-zero:
    dense MLA (62 layers), and 4 layers' forward of 2 x 1024 against 1024
    decode steps.  Each check prints one ``moe {...}`` or ``mla {...}``
    line.
-8. ops — phase 3's ResNet-18 f32 and VGG-16 f32 batch-1 forwards observed
+8. vlm — Llama-3.2-11B-Vision (``repro_torch.configs.llama32_vision_11b``)
+   and Whisper-large-v3 at full width and depth, random weights from a
+   seed, the cross layers' gates set to ``VLM_GATE`` (their zero init would
+   hide the cross path), random bf16 stubs for the vision tower and the
+   audio front end, through the same entry points; every forward's launch
+   counts stay 0.  Llama: the bf16 prefill of 4 x 4096 with a vision stub
+   (median of 3 after a counted forward) with its peak memory and
+   ``cross_attn_block``'s share by CUDA events; layer 0's cross layer at
+   f32 on 4096 queries, which must take the chunked path on its grid
+   (1024-query chunks, the 1601-wide source one block), held against
+   ``dense_attention`` on the same q, k and v (``plain_tol``); the bf16
+   logits of 1 x 512 tokens under two vision stubs, which must differ by
+   more than ``VLM_MOVE_SHARE`` of their magnitude; decode ms a step at
+   bf16, batch 4, after ``prefill_cross_caches``; ``serve``; 10 of its 40
+   layers at f32, the forward of 2 x 512 against 512 decode steps within
+   ``_recurrence_tol``.  Whisper: the encoder alone over 4 x 1500 frames;
+   the bf16 prefill of 4 x 4096 decoder tokens with the encoder included
+   (timed as Llama's); the cross check against a 1500-wide source; decode;
+   ``serve``; 4 encoder and 4 decoder layers at f32, prefill against
+   decode.  Each check prints one ``vlm {...}`` or ``encdec {...}`` line.
+9. ops — phase 3's ResNet-18 f32 and VGG-16 f32 batch-1 forwards observed
    and guarded (``repro_torch.obs``, ``repro_torch.robust``): each traced
    three times (per forward a span per launch with a positive CUDA-event
    time on this card, logits and skip maps as the untraced forward's, the
@@ -146,7 +168,7 @@ exits non-zero:
    ``python -m repro_torch.obs.explain --model resnet18 --run --guard
    --trace FILE`` as a subprocess.  Its launches go on an ``ops launches``
    line of their own.
-9. serve — ResNet-18 at full width (224x224x3, 1000 classes, phase 3's
+10. serve — ResNet-18 at full width (224x224x3, 1000 classes, phase 3's
    params) through the serving engine (``repro_torch.net.serve``,
    ``ServeConfig(buckets=(1, 2, 4, 8))``, f32): two waves of the same
    seeded stream of 24 requests of 1-3 images, every request's logits
@@ -168,7 +190,7 @@ exits non-zero:
    as subprocesses, ``--dry-stream`` and ``--inject slow_launch
    --breaker 1 --watchdog 3``.  Its launches go on a ``serve launches``
    line of their own.
-10. results — one ``{"kernels": [...]}`` line (for the pyramid kernels
+11. results — one ``{"kernels": [...]}`` line (for the pyramid kernels
    ``launches`` sums the four forwards, ``launches_per_forward`` splits
    it, and every time sums the per-launch medians over the dense pyramids
    of the four plans; for the SOP kernel ``launches_per_layer`` splits
@@ -1562,7 +1584,9 @@ ARCTIC_LAYERS = 1  # of 35
 MLA_ARCH = "minicpm3_4b"
 MOE_PREFILL = (4, 4096)  # bf16: layer 0's dispatch against the loop; timed
 MOE_TIMED = (8, 32768)  # bf16: Qwen's prefill_32k cell, 8 of 32 sequences
-MOE_TIMED_REPS = 2  # after the counted forward
+# after the counted forward; one, for the script's time (cut from 2 when
+# phase vlm came; two runs spread 0.2 % on an H100 80GB HBM3 at 700 W)
+MOE_TIMED_REPS = 1
 MOE_LAYERS = 4  # f32 prefill vs decode: of Qwen's 24 and MiniCPM3's 62
 MOE_RECURRENCE = (2, 512)  # f32, Qwen at capacity factor E / k: no drops
 MLA_RECURRENCE = (2, 1024)  # f32, MiniCPM3, through the latent cache
@@ -1609,6 +1633,19 @@ class MoePhase:
 
         self.torch.cuda.empty_cache()
         return init_params(cfg, 0, device=self.device)
+
+    def _stubs(self, cfg, batch: int, seed: int) -> dict:
+        """The stub inputs a family's forward takes besides its tokens:
+        none for these families (phase vlm's take vision or frames)."""
+        return {}
+
+    def _span(self, cfg):
+        """``(module, name)`` of the function whose calls the timed prefill
+        times by CUDA events and reports as a share: the MoE layer's
+        ``moe_ffn``; none for MLA."""
+        from repro_torch.models import blocks
+
+        return (blocks, "moe_ffn") if cfg.family == "moe" else None
 
     @staticmethod
     def _no_launches(what) -> None:
@@ -1711,20 +1748,21 @@ class MoePhase:
     def timed_prefill(self, cfg, params, shape, seed, reps) -> dict:
         """A counted forward of ``shape`` through ``make_prefill_step`` (no
         launches; the peak memory since just before it), then the median
-        host time of ``reps`` forwards, each ``moe_ffn`` call's device time
-        taken by CUDA events around it, and its share."""
+        host time of ``reps`` forwards, each call of the family's
+        :meth:`_span` function timed by CUDA events around it, and its
+        share."""
         from repro_torch.kernels import build
         from repro_torch.launch.steps import make_prefill_step
-        from repro_torch.models import blocks
 
         torch = self.torch
-        tokens = self._tokens(cfg, shape, seed)
+        batch = {"tokens": self._tokens(cfg, shape, seed),
+                 **self._stubs(cfg, shape[0], seed)}
         prefill = make_prefill_step(cfg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         build.reset_launch_counts()
         t0 = time.perf_counter()
-        logits = prefill(params, {"tokens": tokens})
+        logits = prefill(params, batch)
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1733,7 +1771,8 @@ class MoePhase:
                                  f"{cfg.name} prefill {shape}")
         del logits
         spans = []
-        real = blocks.moe_ffn
+        mod, name = self._span(cfg) or (None, "")
+        real = None if mod is None else getattr(mod, name)
 
         def timed(*a, **kw):
             ev = (torch.cuda.Event(enable_timing=True),
@@ -1744,27 +1783,30 @@ class MoePhase:
             spans.append(ev)
             return out
 
-        fwd_ms, moe_ms = [], []
+        fwd_ms, span_ms = [], []
         for _ in range(reps):
             spans.clear()
-            blocks.moe_ffn = timed
+            if mod is not None:
+                setattr(mod, name, timed)
             try:
                 t0 = time.perf_counter()
-                prefill(params, {"tokens": tokens})
+                prefill(params, batch)
                 torch.cuda.synchronize()
                 fwd_ms.append((time.perf_counter() - t0) * 1e3)
             finally:
-                blocks.moe_ffn = real
-            moe_ms.append(sum(a.elapsed_time(b) for a, b in spans))
+                if mod is not None:
+                    setattr(mod, name, real)
+            span_ms.append(sum(a.elapsed_time(b) for a, b in spans))
         ms = statistics.median(fwd_ms)
         row = dict(cell=f"prefill bf16 {shape[0]}x{shape[1]}", model=cfg.name,
                    layers=cfg.n_layers, counted_forward_ms=first_ms,
                    forward_ms=ms, forward_ms_runs=fwd_ms,
                    tokens_per_s=shape[0] * shape[1] / ms * 1e3,
                    peak_gb=peak_gb, max_abs_logit=mag)
-        if cfg.family == "moe":
-            row.update(moe_ffn_device_ms=statistics.median(moe_ms),
-                       moe_ffn_share=statistics.median(moe_ms) / ms)
+        if mod is not None:
+            row.update({f"{name}_device_ms": statistics.median(span_ms),
+                        f"{name}_calls": len(spans),
+                        f"{name}_share": statistics.median(span_ms) / ms})
         return row
 
     def decode(self, cfg, params) -> dict:
@@ -1776,12 +1818,15 @@ class MoePhase:
         from repro_torch.launch.steps import make_decode_step
         from repro_torch.models.params import leaves
         from repro_torch.models.serving import init_caches
+        from repro_torch.models.serving import prefill_cross_caches
 
         torch = self.torch
         b, S = MOE_DECODE["batch"], MOE_DECODE["max_seq"]
         n, warm = MOE_DECODE["steps"], MOE_DECODE["warmup"]
         tokens = self._tokens(cfg, (b, n + warm), 8)
-        caches = init_caches(cfg, b, S, device=self.device)
+        caches = prefill_cross_caches(
+            cfg, params, init_caches(cfg, b, S, device=self.device),
+            **self._stubs(cfg, b, 8))
         step = make_decode_step(cfg)
         for t in range(warm):
             step(params, tokens[:, t:t + 1], caches, t)
@@ -1824,15 +1869,18 @@ class MoePhase:
         from repro_torch.launch.steps import make_decode_step
         from repro_torch.models.model import forward
         from repro_torch.models.serving import init_caches
+        from repro_torch.models.serving import prefill_cross_caches
 
         torch = self.torch
         params = self._params(cfg)
         b, T = shape
         tokens = self._tokens(cfg, shape, seed)
+        stubs = self._stubs(cfg, b, seed)
         build.reset_launch_counts()
-        want, _ = forward(cfg, params, tokens, mode="prefill")
+        want, _ = forward(cfg, params, tokens, mode="prefill", **stubs)
         step = make_decode_step(cfg)
-        caches = init_caches(cfg, b, T, device=self.device)
+        caches = prefill_cross_caches(
+            cfg, params, init_caches(cfg, b, T, device=self.device), **stubs)
         errs = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2010,6 +2058,235 @@ class MoePhase:
             self.torch.cuda.empty_cache()
         self.summary["seconds"] = time.perf_counter() - t0
         print(f"phase moe: {self.summary['seconds']:.1f} s", flush=True)
+        return self.summary
+
+
+# ---- phase vlm ------------------------------------------------------------
+
+# Llama-3.2-11B-Vision at full width and depth (40 layers = 8 groups of 4
+# dense layers and 1 gated cross-attention layer, d_model 4096, 32 query and
+# 8 KV heads of 128, d_ff 14,336, vocab 128,256, a 1601-token vision stub;
+# 8.37 B parameters, 16.7 GB at bf16) and Whisper-large-v3 at full width and
+# depth (32 encoder and 32 decoder layers, d_model 1280, 20 heads of 64, d_ff
+# 5120, vocab 51,866, a 1500-frame stub, LayerNorm and GELU; 1.60 B, 3.2 GB);
+# random weights from a seed, bf16 unless a check says f32; the stubs are
+# random bf16, as the reference makes them.  The cross layers' gates start
+# at zero and tanh(0) = 0 would hide the cross path from every check, so the
+# phase sets them to VLM_GATE in the port's params (``serve`` draws its own,
+# zero-gated params).  Cuts, for time: the f32 prefill against decode runs
+# Llama at 10 of its 40 layers (2 groups) and Whisper at 4 of its 32
+# encoder and 4 of its 32 decoder layers.  No kernel lies on these paths:
+# every forward's launch counts stay 0.
+VLM_ARCH = "llama32_vision_11b"
+WHISPER_ARCH = "whisper_large_v3"
+VLM_GATE = 1.0  # tanh(1) = 0.76 of each cross layer's output
+VLM_PREFILL = (4, 4096)  # bf16: timed, cross-attention's share
+VLM_CROSS_Q = 4096  # f32, one cross layer: 4 query chunks of 1024
+VLM_MOVE = (1, 512)  # bf16, full depth: two vision stubs
+VLM_RECURRENCE = (2, 512)  # f32, prefill vs decode
+VLM_LAYERS = 10  # of Llama's 40: 2 groups, f32 prefill vs decode
+WHISPER_LAYERS = 4  # of 32 encoder and 32 decoder layers, the same check
+WHISPER_ENCODER_BATCH = 4  # the encoder alone over 4 x 1500 frames, bf16
+# the vision change must move Llama's bf16 logits by more than this share of
+# their magnitude: four bf16 roundings' worth (2^-8 each), which no rounding
+# difference reaches, while a live gate moves them by the cross layers' own
+# share of the residual stream
+VLM_MOVE_SHARE = 2.0 ** -6
+
+
+class VlmPhase(MoePhase):
+    """Phase vlm: the VLM family (Llama-3.2-11B-Vision) and the
+    encoder-decoder family (Whisper-large-v3) through the port's entry
+    points.  Every check prints one ``vlm {...}`` or ``encdec {...}``
+    line; a failed check raises."""
+
+    def __init__(self, torch, device):
+        super().__init__(torch, device)
+        self.summary = {"vlm": {}, "encdec": {}}
+
+    def _params(self, cfg):
+        params = super()._params(cfg)
+        if "gate" in params.get("cross", {}):
+            params["cross"]["gate"].fill_(VLM_GATE)
+        return params
+
+    def _stubs(self, cfg, batch: int, seed: int) -> dict:
+        gen = self.torch.Generator(device=self.device).manual_seed(seed)
+        n = cfg.vis_seq if cfg.family == "vlm" else cfg.enc_seq
+        stub = self.torch.randn((batch, n, cfg.d_model), generator=gen,
+                                device=self.device, dtype=self.torch.bfloat16)
+        return {"vision" if cfg.family == "vlm" else "frames": stub}
+
+    def _span(self, cfg):
+        from repro_torch.models import model
+
+        return model, "cross_attn_block"
+
+    def cross_chunked_vs_dense(self, cfg, params) -> dict:
+        """One cross layer (layer 0's weights, at f32) on ``VLM_CROSS_Q``
+        queries against the stub's source: the block must take the
+        chunked path on its grid (1024-query chunks, the whole source one
+        key block), and that output is held against ``dense_attention``
+        on the same q, k and v within ``plain_tol`` (1e-4 of max|dense|,
+        no floor).  Both dataflows are timed once."""
+        import dataclasses
+
+        from repro_torch.kernels import build
+        from repro_torch.kernels.ssd_scan.ssd_scan import plain_tol
+        from repro_torch.models import blocks as B
+        from repro_torch.models.layers import dense_attention
+        from repro_torch.models.params import tree_map
+
+        torch = self.torch
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        cp = tree_map(lambda t: t[0].float(), params["cross"])
+        src = next(iter(self._stubs(cfg, 1, 5).values())).float()
+        gen = torch.Generator(device=self.device).manual_seed(6)
+        x = torch.randn((1, VLM_CROSS_Q, cfg.d_model), generator=gen,
+                        device=self.device)
+        seen = []
+        real = B.chunked_attention
+
+        def recording(q, k, v, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(q, k, v, **kw)
+            torch.cuda.synchronize()
+            seen.append((q, k, v, kw, out, (time.perf_counter() - t0) * 1e3))
+            return out
+
+        build.reset_launch_counts()
+        B.chunked_attention = recording
+        try:
+            B.cross_attn_block(f32, cp, x, src, B.LayerCtx(mode="prefill"))
+        finally:
+            B.chunked_attention = real
+        q, k, v, kw, chunked, chunked_ms = seen[0]
+        grid = dict(causal=False, q_chunk=1024, kv_chunk=src.shape[1])
+        if len(seen) != 1 or kw != grid:
+            raise AssertionError(f"{cfg.name} cross layer: chunked calls"
+                                 f" {[s[3] for s in seen]}, want one {grid}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense = dense_attention(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        dense_ms = (time.perf_counter() - t0) * 1e3
+        self._no_launches(f"{cfg.name} cross layer")
+        err = float((chunked - dense).abs().max())
+        tol = plain_tol(dense, torch.float32)
+        if not (err <= tol and tol > 0):
+            raise AssertionError(f"{cfg.name} cross layer f32: chunked vs"
+                                 f" dense err {err} > tol {tol}")
+        return dict(cell=(f"cross layer f32 1x{VLM_CROSS_Q} vs a"
+                          f" {src.shape[1]}-wide source"), model=cfg.name,
+                    grid=[kw["q_chunk"], kw["kv_chunk"]], max_abs_err=err,
+                    tol=tol, max_abs_out=float(dense.abs().max()),
+                    chunked_ms=chunked_ms, dense_ms=dense_ms)
+
+    def vision_moves(self, cfg, params) -> dict:
+        """At bf16 and full depth: the logits of ``VLM_MOVE`` tokens under
+        two vision stubs differ by more than ``VLM_MOVE_SHARE`` of their
+        magnitude (the gated cross path is live), and a rerun under the
+        first stub is printed beside it."""
+        from repro_torch.kernels import build
+        from repro_torch.models.model import forward
+
+        tokens = self._tokens(cfg, VLM_MOVE, 9)
+        stubs = [self._stubs(cfg, VLM_MOVE[0], seed) for seed in (10, 11, 10)]
+        build.reset_launch_counts()
+        a, b, again = (forward(cfg, params, tokens, mode="prefill", **st)[0]
+                       for st in stubs)
+        self._no_launches(f"{cfg.name} vision change")
+        mag = self._check_logits(a[:, -1], (1, cfg.vocab), cfg.name)
+        moved = float((a.float() - b.float()).abs().max())
+        rerun = float((a.float() - again.float()).abs().max())
+        if not moved > VLM_MOVE_SHARE * mag:
+            raise AssertionError(f"{cfg.name}: another vision stub moves the"
+                                 f" logits by {moved}, max|logit| {mag}")
+        return dict(cell=f"vision change, bf16 {VLM_MOVE[0]}x{VLM_MOVE[1]}",
+                    model=cfg.name, gate=VLM_GATE, moved_max_abs=moved,
+                    moved_share=moved / mag, bound_share=VLM_MOVE_SHARE,
+                    rerun_max_abs=rerun, max_abs_logit=mag)
+
+    def encoder_ms(self, cfg, params) -> dict:
+        """Whisper's encoder alone over ``WHISPER_ENCODER_BATCH`` x 1500
+        frames at bf16: a counted warm-up, then the median of 3, host
+        clock ended by a synchronize."""
+        from repro_torch.kernels import build
+        from repro_torch.models.model import _whisper_encoder
+
+        torch = self.torch
+        frames = self._stubs(cfg, WHISPER_ENCODER_BATCH, 12)["frames"]
+        build.reset_launch_counts()
+        out = _whisper_encoder(cfg, params, frames)
+        torch.cuda.synchronize()
+        self._no_launches(f"{cfg.name} encoder")
+        if (tuple(out.shape) != tuple(frames.shape)
+                or not bool(torch.isfinite(out.float()).all())):
+            raise AssertionError(f"{cfg.name} encoder: {tuple(out.shape)}")
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _whisper_encoder(cfg, params, frames)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(runs)
+        return dict(cell=f"encoder bf16 {WHISPER_ENCODER_BATCH}x{cfg.enc_seq}",
+                    model=cfg.name, layers=cfg.enc_layers, encoder_ms=ms,
+                    encoder_ms_runs=runs,
+                    frames_per_s=WHISPER_ENCODER_BATCH * cfg.enc_seq / ms * 1e3)
+
+    # ---- the two models --------------------------------------------------
+
+    def llama(self) -> None:
+        import dataclasses
+
+        from repro_torch.configs import get_config
+
+        cfg = get_config(VLM_ARCH)
+        params = self._params(cfg)
+        self._print("vlm", "prefill_bf16",
+                    self.timed_prefill(cfg, params, VLM_PREFILL, 3, 3))
+        self.torch.cuda.empty_cache()
+        self._print("vlm", "cross_chunked_vs_dense_f32",
+                    self.cross_chunked_vs_dense(cfg, params))
+        self.torch.cuda.empty_cache()
+        self._print("vlm", "vision_moves_bf16", self.vision_moves(cfg, params))
+        self._print("vlm", "decode_bf16", self.decode(cfg, params))
+        del params
+        self._print("vlm", "serve_bf16", self.serve(cfg))
+        cut = dataclasses.replace(cfg, n_layers=VLM_LAYERS, dtype="float32")
+        self._print("vlm", "recurrence_f32",
+                    self.prefill_vs_decode(cut, VLM_RECURRENCE, 4))
+
+    def whisper(self) -> None:
+        import dataclasses
+
+        from repro_torch.configs import get_config
+
+        cfg = get_config(WHISPER_ARCH)
+        params = self._params(cfg)
+        self._print("encdec", "encoder_bf16", self.encoder_ms(cfg, params))
+        self._print("encdec", "prefill_bf16",
+                    self.timed_prefill(cfg, params, VLM_PREFILL, 3, 3))
+        self.torch.cuda.empty_cache()
+        self._print("encdec", "cross_chunked_vs_dense_f32",
+                    self.cross_chunked_vs_dense(cfg, params))
+        self._print("encdec", "decode_bf16", self.decode(cfg, params))
+        del params
+        self._print("encdec", "serve_bf16", self.serve(cfg))
+        cut = dataclasses.replace(cfg, n_layers=WHISPER_LAYERS,
+                                  enc_layers=WHISPER_LAYERS, dtype="float32")
+        self._print("encdec", "recurrence_f32",
+                    self.prefill_vs_decode(cut, VLM_RECURRENCE, 4))
+
+    def run(self) -> dict:
+        t0 = time.perf_counter()
+        for model in (self.llama, self.whisper):
+            model()
+            self.torch.cuda.empty_cache()
+        self.summary["seconds"] = time.perf_counter() - t0
+        print(f"phase vlm: {self.summary['seconds']:.1f} s", flush=True)
         return self.summary
 
 
@@ -2977,6 +3254,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         moe = MoePhase(torch, device).run()
         torch.cuda.empty_cache()
+        vlm = VlmPhase(torch, device).run()
+        torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tmp:
             ops = Ops(smoke, Path(tmp) if args.out is None
                       else args.out.parent).run()
@@ -3009,6 +3288,7 @@ def main(argv=None) -> int:
                 lm=lm.summary,
                 hybrid=hybrid.summary,
                 moe=moe,
+                vlm=vlm,
                 ops=ops,
                 serve=serve,
                 seconds=time.perf_counter() - t0,

@@ -3,9 +3,10 @@
 The port of the reference's ``repro.configs.base``, fields unchanged.  One
 config file per ported architecture lives next to this module; each exposes
 ``CONFIG``.  ``get_config(name)`` resolves from the registry, which lists
-only the architectures whose family the port runs (the MoE, dense (GQA or
-MLA attention), hybrid and SSM families so far); ``cfg.reduced()`` builds
-the family-preserving small config used by the CPU tests.
+all ten of the reference's architectures (the MoE, dense (GQA or MLA
+attention), VLM, hybrid, SSM and encoder-decoder audio families);
+``cfg.reduced()`` builds the family-preserving small config used by the
+CPU tests.
 """
 
 from __future__ import annotations
@@ -139,8 +140,7 @@ class ArchConfig:
         )
 
 
-# the ported architectures, in the reference's order; its other two need
-# cross-attention or an encoder, which the port does not have yet
+# the reference's architectures, in its order
 ARCH_IDS = (
     "arctic_480b",
     "qwen2_moe_a2_7b",
@@ -148,8 +148,10 @@ ARCH_IDS = (
     "deepseek_7b",
     "glm4_9b",
     "phi4_mini_3_8b",
+    "llama32_vision_11b",
     "hymba_1_5b",
     "mamba2_780m",
+    "whisper_large_v3",
 )
 
 

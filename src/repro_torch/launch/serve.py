@@ -9,7 +9,9 @@ greedily decodes a batch of random prompts on the reduced config, on the
 card unless ``--device`` says otherwise; :func:`serve` takes
 ``reduced=False`` for the full config.  The prompt is
 prefilled by repeated decode, as in the reference, so one step serves every
-position: step ``i`` writes its token at cache position ``i``.
+position: step ``i`` writes its token at cache position ``i``.  A VLM's
+vision stub and Whisper's frame stub are random bf16 inputs, as in the
+reference, projected into the cross caches once before the loop.
 """
 
 from __future__ import annotations
@@ -22,7 +24,11 @@ import torch
 from repro_torch.configs import ArchConfig, get_config
 from repro_torch.core import resolve_device
 from repro_torch.models.model import init_params
-from repro_torch.models.serving import decode_step, init_caches
+from repro_torch.models.serving import (
+    decode_step,
+    init_caches,
+    prefill_cross_caches,
+)
 
 
 def serve(arch: str | ArchConfig, *, batch: int = 4, prompt_len: int = 8,
@@ -41,6 +47,15 @@ def serve(arch: str | ArchConfig, *, batch: int = 4, prompt_len: int = 8,
     max_seq = prompt_len + new_tokens
     caches = init_caches(cfg, batch, max_seq, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    vision = frames = None
+    if cfg.family == "vlm":
+        vision = torch.randn((batch, cfg.vis_seq, cfg.d_model), generator=gen,
+                             device=dev, dtype=torch.bfloat16)
+    if cfg.kind == "encdec":
+        frames = torch.randn((batch, cfg.enc_seq, cfg.d_model), generator=gen,
+                             device=dev, dtype=torch.bfloat16)
+    caches = prefill_cross_caches(cfg, params, caches, vision=vision,
+                                  frames=frames)
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
                            device=dev)
     out_tokens = []

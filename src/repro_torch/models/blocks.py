@@ -1,15 +1,15 @@
 """Per-family layer bodies.
 
-The port of the reference's ``repro.models.blocks``, cut to the dense
-(GQA or MLA attention), MoE, hybrid and SSM families.  Every body has the
+The port of the reference's ``repro.models.blocks``.  Every body has the
 signature ``(cfg, p, x, ctx, cache) -> (x, new_cache)``, where ``ctx`` is a
-:class:`LayerCtx` carrying the mode and the attention switches;
+:class:`LayerCtx` carrying the mode, the attention switches and the
+auxiliary inputs (the vision stub, the encoder's states);
 :mod:`repro_torch.models.model` loops the bodies over stacked params.  The
 reference's bodies also return a per-layer aux loss, which only its
 training loss reads: :func:`moe_layer` computes it (through
 :func:`~repro_torch.models.moe.moe_ffn`) and drops it until the port has
-training.  LayerNorm and the GELU MLP raise ``NotImplementedError``: no
-ported config uses them.
+training, and :func:`cross_attn_block`, whose aux is a constant 0, returns
+the hidden states alone.
 """
 
 from __future__ import annotations
@@ -17,7 +17,18 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
-from .layers import gqa_attention, mla_attention, rms_norm, swiglu
+import torch
+
+from .layers import (
+    chunked_attention,
+    dense_attention,
+    gelu_mlp,
+    gqa_attention,
+    layer_norm,
+    mla_attention,
+    rms_norm,
+    swiglu,
+)
 from .moe import moe_ffn
 from .ssm import mamba2_mixer
 
@@ -29,21 +40,19 @@ class LayerCtx:
     chunked: bool = False  # use flash-chunked attention
     causal: bool = True
     window: int = 0  # sliding window for this layer (0 = full)
+    vision: Any = None  # (B, vis_seq, d) stub embeddings (vlm)
+    encoder_out: Any = None  # (B, enc_seq, d) encoder states (encdec)
 
 
-def _unported(what: str):
-    return NotImplementedError(f"{what} is not ported yet")
-
-
-def _norm(cfg, x, p_scale):
-    if cfg.norm != "rmsnorm":
-        raise _unported(f"norm={cfg.norm!r}")
+def _norm(cfg, x, p_scale, p_bias=None):
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p_scale, p_bias)
     return rms_norm(x, p_scale)
 
 
 def _ffn(cfg, p, x):
-    if cfg.act != "swiglu":
-        raise _unported(f"act={cfg.act!r}")
+    if cfg.act == "gelu":
+        return gelu_mlp(x, p["w_in"], p["w_out"])
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
 
 
@@ -63,8 +72,6 @@ def _self_attention(cfg, p, x, ctx: LayerCtx, cache):
             q_chunk=cfg.attn_chunk,
             kv_chunk=cfg.attn_chunk,
         )
-    if cfg.attn_kind != "gqa":
-        raise _unported(f"attn_kind={cfg.attn_kind!r}")
     return gqa_attention(
         p,
         x,
@@ -88,11 +95,15 @@ def _self_attention(cfg, p, x, ctx: LayerCtx, cache):
 
 
 def dense_layer(cfg, p, x, ctx: LayerCtx, cache=None):
-    """Pre-norm dense block (deepseek / glm4 / phi4 / minicpm3 / llama)."""
+    """Pre-norm dense block (deepseek / glm4 / phi4 / minicpm3 / llama,
+    and whisper's encoder and decoder self layers, whose norms carry a
+    LayerNorm bias)."""
     h, new_cache = _self_attention(
-        cfg, p["attn"], _norm(cfg, x, p["attn_norm"]), ctx, cache)
+        cfg, p["attn"], _norm(cfg, x, p["attn_norm"], p.get("attn_norm_b")),
+        ctx, cache)
     x = x + h
-    x = x + _ffn(cfg, p["ffn"], _norm(cfg, x, p["ffn_norm"]))
+    x = x + _ffn(cfg, p["ffn"],
+                 _norm(cfg, x, p["ffn_norm"], p.get("ffn_norm_b")))
     return x, new_cache
 
 
@@ -167,3 +178,47 @@ def hybrid_layer(cfg, p, x, ctx: LayerCtx, cache=None):
     if cache is not None:
         new_cache = {"attn": new_attn, "ssm": new_ssm}
     return x, new_cache
+
+
+def _cross_chunks(sq: int, skv: int) -> tuple[int, int]:
+    """The reference's chunk grid for a long cross-attention: 1024-query
+    chunks when they divide ``sq`` (else one chunk of ``sq``), and the
+    whole source as one key block up to 2048 positions (Llama-Vision's
+    1601, Whisper's 1500), else its largest divisor in 512..2048 (else the
+    whole source).  Both always divide, as ``chunked_attention`` needs."""
+    qc = 1024 if sq % 1024 == 0 else sq
+    if skv <= 2048:
+        return qc, skv
+    divisors = [d for d in range(512, 2049) if skv % d == 0]
+    return qc, max(divisors) if divisors else skv
+
+
+def cross_attn_block(cfg, p, x, kv_src, ctx: LayerCtx, kv_cache=None):
+    """Gated cross-attention (llama-vision) / plain cross-attn (whisper).
+
+    ``kv_src``: (B, S_src, d) keys/values source (vision or encoder
+    states).  ``kv_cache``: optional precomputed dict(k=, v=) to skip the
+    projections (decode: projected once per request, reused every step);
+    it is read, never written.  Non-causal attention: flash-chunked on the
+    grid of :func:`_cross_chunks` past 2048 queries, dense below.  The
+    output is scaled by ``tanh(gate)`` when the params have a ``gate``.
+    Returns the new hidden states.
+    """
+    xn = _norm(cfg, x, p["norm"], p.get("norm_b"))
+    q = torch.einsum("bsd,dhk->bshk", xn, p["wq"])
+    if kv_cache is not None:
+        k, v = kv_cache["k"].to(q.dtype), kv_cache["v"].to(q.dtype)
+    else:
+        k = torch.einsum("bsd,dhk->bshk", kv_src, p["wk"])
+        v = torch.einsum("bsd,dhk->bshk", kv_src, p["wv"])
+    sq, skv = q.shape[1], k.shape[1]
+    if sq > 2048:
+        qc, kc = _cross_chunks(sq, skv)
+        out = chunked_attention(q, k, v, causal=False, q_chunk=qc,
+                                kv_chunk=kc)
+    else:
+        out = dense_attention(q, k, v, causal=False)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if "gate" in p:
+        y = torch.tanh(p["gate"]) * y
+    return x + y

@@ -1,12 +1,10 @@
-"""Transformer building blocks of the port: RMSNorm, SwiGLU, RoPE, GQA
-attention and multi-head latent attention (MLA).
+"""Transformer building blocks of the port: RMSNorm, LayerNorm, SwiGLU,
+the GELU MLP, RoPE, GQA attention and multi-head latent attention (MLA).
 
-The port of the reference's ``repro.models.layers``, cut to what the dense,
-MoE, hybrid and SSM families run (its layernorm and GELU MLP wait for the
-families that need them).  Every block is a plain function of tensors, with
-the reference's cast order: attention scores in float32, masked with the
-finite :data:`NEG_INF`, softmaxed in float32 and cast back to the inputs'
-type before the value product.
+The port of the reference's ``repro.models.layers``.  Every block is a
+plain function of tensors, with the reference's cast order: attention
+scores in float32, masked with the finite :data:`NEG_INF`, softmaxed in
+float32 and cast back to the inputs' type before the value product.
 
 Attention comes in two dataflows, as in the reference:
 
@@ -19,7 +17,9 @@ Attention comes in two dataflows, as in the reference:
 Decode attention (:func:`gqa_attention` or :func:`mla_attention` with a
 cache) writes the new keys and values (MLA: the latent and the shared RoPE
 key) into the cache **in place** and attends over the whole cache with
-position masks, where the reference returns an updated cache.
+position masks, where the reference returns an updated cache.  A write
+past the cache's end raises ``ValueError`` (:func:`_check_cache_room`); the
+reference clamps it onto the last slots instead.
 """
 
 from __future__ import annotations
@@ -45,11 +45,30 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     return (x * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """``((x - mean) * rsqrt(var + eps)).astype(x.dtype) * scale + bias``,
+    the mean and the population variance in float32: the reference's cast
+    order.  ``F.layer_norm`` is not used: at bf16 it applies the weight
+    before the cast, which rounds elsewhere."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * scale + bias
+
+
 def swiglu(x, w_gate, w_up, w_down):
     """SwiGLU MLP: down( silu(x@gate) * (x@up) )."""
     g = F.silu(x @ w_gate)
     u = x @ w_up
     return (g * u) @ w_down
+
+
+def gelu_mlp(x, w_in, w_out):
+    """GELU MLP: out( gelu(x@in) ), with the tanh approximation that
+    ``jax.nn.gelu`` takes by default (the erf form differs by up to 5e-4)."""
+    return F.gelu(x @ w_in, approximate="tanh") @ w_out
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +226,17 @@ def chunked_attention(
 # ---------------------------------------------------------------------------
 
 
+def _check_cache_room(cache_len: int, cache_index: int, s: int) -> None:
+    """Refuse a write of ``s`` positions at ``cache_index`` that would run
+    past a cache of ``cache_len`` positions: a slice assignment there
+    writes nothing and raises nothing, so the step would attend over a
+    cache without its own tokens."""
+    if cache_index + s > cache_len:
+        raise ValueError(
+            f"decode past the cache's end: {s} position(s) at cache_index"
+            f" {cache_index} into a cache of {cache_len}")
+
+
 def gqa_attention(
     p,
     x,
@@ -227,9 +257,10 @@ def gqa_attention(
 
     ``kv_cache``: optional dict(k=(B,Smax,Hkv,D), v=...) for decode; the new
     tokens' k/v are written into it in place at ``cache_index`` (in the
-    cache's type) and attention runs over the whole cache with position
-    masking.  Returns (out, new_cache): ``new_cache`` holds the cache's own
-    tensors, ``None`` without a cache.
+    cache's type; ``ValueError`` if they would run past ``Smax``) and
+    attention runs over the whole cache with position masking.  Returns
+    (out, new_cache): ``new_cache`` holds the cache's own tensors, ``None``
+    without a cache.
     """
     b, s, _ = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])  # (B,S,H,Dh)
@@ -243,6 +274,7 @@ def gqa_attention(
 
     if kv_cache is not None:
         kc, vc = kv_cache["k"], kv_cache["v"]
+        _check_cache_room(kc.shape[1], cache_index, s)
         kc[:, cache_index:cache_index + s] = k.to(kc.dtype)
         vc[:, cache_index:cache_index + s] = v.to(vc.dtype)
         new_cache = {"k": kc, "v": vc}
@@ -302,9 +334,10 @@ def mla_attention(
     call.  RoPE rotates ``q_rope`` and the shared key only; the scale is
     ``(d_nope + d_rope) ** -0.5``.  ``kv_cache``: optional dict(ckv=(B,
     Smax, kv_lora), krope=(B, Smax, d_rope)), written in place at
-    ``cache_index``.  Returns ``(out, new_cache)`` as :func:`gqa_attention`.
-    The reference's ``q_lora`` and ``kv_lora`` arguments, which it does not
-    read (the params carry those widths), are not ported.
+    ``cache_index`` (``ValueError`` past ``Smax``).  Returns ``(out,
+    new_cache)`` as :func:`gqa_attention`.  The reference's ``q_lora`` and
+    ``kv_lora`` arguments, which it does not read (the params carry those
+    widths), are not ported.
     """
     b, s, _ = x.shape
     # --- queries through the low-rank bottleneck ---
@@ -323,6 +356,7 @@ def mla_attention(
 
     if kv_cache is not None:
         ckv_c, kr_c = kv_cache["ckv"], kv_cache["krope"]
+        _check_cache_room(ckv_c.shape[1], cache_index, s)
         ckv_c[:, cache_index:cache_index + s] = ckv.to(ckv_c.dtype)
         kr_c[:, cache_index:cache_index + s] = krope.to(kr_c.dtype)
         new_cache = {"ckv": ckv_c, "krope": kr_c}

@@ -1,7 +1,7 @@
 """Parameter specs: one source of truth for shapes and init scales.
 
-The port of the reference's ``repro.models.params``, cut to what the SSM,
-dense (GQA or MLA attention), MoE and hybrid families need.  Every leaf is
+The port of the reference's ``repro.models.params``, cut to what its model
+families need (its abstract and sharding trees are not ported).  Every leaf is
 declared as ``P(shape, axes, scale)``; the tree drives real initialization
 (truncated normal with fan-in scaling, from an explicit
 ``torch.Generator``).  The logical
@@ -111,6 +111,13 @@ def swiglu_specs(d: int, f: int) -> dict:
     }
 
 
+def gelu_mlp_specs(d: int, f: int) -> dict:
+    return {
+        "w_in": P((d, f), ("embed", "mlp")),
+        "w_out": P((f, d), ("mlp", "embed")),
+    }
+
+
 def moe_specs(cfg) -> dict:
     d, E, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
     return {
@@ -134,3 +141,21 @@ def mamba_specs(cfg) -> dict:
         "D": P((H,), (None,), "one"),
         "w_out": P((di, d), ("mlp", "embed")),
     }
+
+
+def cross_attn_specs(cfg) -> dict:
+    """One cross-attention layer: GQA projections over a K/V source, a
+    pre-norm (with a bias under LayerNorm) and a ``tanh`` gate that starts
+    at zero (Llama-Vision; Whisper's caller drops it)."""
+    d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    s = {
+        "wq": P((d, H, Dh), ("embed", "heads", None)),
+        "wk": P((d, Hkv, Dh), ("embed", "kv_heads", None)),
+        "wv": P((d, Hkv, Dh), ("embed", "kv_heads", None)),
+        "wo": P((H, Dh, d), ("heads", None, "embed")),
+        "gate": P((1,), (None,), "zero"),
+        "norm": P((d,), (None,), "one"),
+    }
+    if cfg.norm == "layernorm":
+        s["norm_b"] = P((d,), (None,), "zero")
+    return s

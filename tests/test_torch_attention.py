@@ -5,7 +5,9 @@ seeded numpy inputs in float32: ``dense_attention`` and
 visited block), with ``kv_offset > 0`` (a cache prefix) and GQA with
 ``n_rep`` in {1, 2, 5}; ``_expand_kv`` as a repeat-interleave; ``apply_rope``
 at float32 and bfloat16; ``swiglu``; ``gqa_attention`` without a cache,
-chunked, and with a cache written in place at ``cache_index``.
+chunked, and with a cache written in place at ``cache_index``; a decode
+write at the cache's last slot as the reference's, and one past its end
+refused with ``ValueError`` where the reference clamps it.
 
 The outputs agree within 2e-5 of their magnitude (float32 sums in another
 order; an indexing or masking error is of the output's own size), RoPE at
@@ -232,3 +234,53 @@ def test_gqa_attention_with_a_cache(window):
     # the decode outputs reproduce the full causal forward
     full, _ = L.gqa_attention(tp, torch.tensor(x), **kw)
     _close(got[:, 0], full[:, -1].numpy())
+
+
+def _fill_cache(p, n, seed):
+    """A (2, n, 2, 8) GQA cache filled by n decode steps in the port, and
+    the reference's cache after the same steps."""
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    tp = {k: torch.tensor(v) for k, v in p.items()}
+    x = np.random.default_rng(seed).normal(0, 1, (2, n, 24)).astype(
+        np.float32)
+    jcache = {"k": jnp.zeros((2, n, 2, 8)), "v": jnp.zeros((2, n, 2, 8))}
+    cache = {"k": torch.zeros(2, n, 2, 8), "v": torch.zeros(2, n, 2, 8)}
+    for t in range(n - 1):
+        _, jcache = _ref(jL.gqa_attention, jp, jnp.asarray(x[:, t:t + 1]),
+                         kv_cache=jcache, cache_index=t, **GQA_KW)
+        L.gqa_attention(tp, torch.tensor(x[:, t:t + 1]), kv_cache=cache,
+                        cache_index=t, **GQA_KW)
+    return jp, tp, jcache, cache, x
+
+
+def test_gqa_decode_writes_the_last_slot():
+    """The step at ``cache_index = S_max - 1`` lands in the last slot, its
+    output and the whole cache as the reference's."""
+    p = _gqa_params(24, 10, 2, 8, seed=3)
+    jp, tp, jcache, cache, x = _fill_cache(p, 8, 4)
+    want, jcache = _ref(jL.gqa_attention, jp, jnp.asarray(x[:, 7:]),
+                        kv_cache=jcache, cache_index=7, **GQA_KW)
+    assert not cache["k"][:, 7].any()
+    got, _ = L.gqa_attention(tp, torch.tensor(x[:, 7:]), kv_cache=cache,
+                             cache_index=7, **GQA_KW)
+    assert bool(cache["k"][:, 7].any()) and bool(cache["v"][:, 7].any())
+    _close(got, want)
+    for name in ("k", "v"):
+        _close(cache[name], jcache[name])
+
+
+@pytest.mark.parametrize("index,s", [(8, 1), (7, 2), (20, 1)])
+def test_gqa_decode_past_the_cache_raises(index, s):
+    """A write of ``s`` positions at ``index`` into an 8-slot cache that
+    would run past its end raises before anything is written (the
+    reference's ``dynamic_update_slice`` clamps it onto the last slots and
+    overwrites a live one; the port's slice would write nothing and drop
+    the step's own K/V)."""
+    p = _gqa_params(24, 10, 2, 8, seed=3)
+    _, tp, _, cache, _ = _fill_cache(p, 8, 4)
+    before = {k: v.clone() for k, v in cache.items()}
+    x = torch.ones(2, s, 24)
+    with pytest.raises(ValueError, match="past the cache"):
+        L.gqa_attention(tp, x, kv_cache=cache, cache_index=index, **GQA_KW)
+    for name in ("k", "v"):
+        assert torch.equal(cache[name], before[name])

@@ -296,13 +296,21 @@ def test_hybrid_layer_matches_the_reference(pair, part, chunked):
 
 
 def test_unported_pieces_raise(pair):
-    _, cfg, _, params, _ = pair
-    x = torch.zeros(1, 16, cfg.d_model)
+    """Hymba's params under a LayerNorm or GELU config fail in the port as
+    they do in the reference: its norms carry no bias (LayerNorm's ``+
+    None`` raises ``TypeError``) and its FFN no ``w_in`` (``KeyError``)."""
+    jcfg, cfg, jparams, params, _ = pair
+    x = np.zeros((1, 16, cfg.d_model), np.float32)
+    jp = jax.tree.map(lambda t: t[0], jparams["global"])
     p = tree_map(lambda t: t[0], params["global"])
-    ctx = B.LayerCtx()
-    for change in (dict(norm="layernorm"), dict(act="gelu")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            B.hybrid_layer(dataclasses.replace(cfg, **change), p, x, ctx)
+    for change, error in ((dict(norm="layernorm"), TypeError),
+                          (dict(act="gelu"), KeyError)):
+        with pytest.raises(error):
+            jB.hybrid_layer(dataclasses.replace(jcfg, **change), jp,
+                            jnp.asarray(x), jB.LayerCtx())
+        with pytest.raises(error):
+            B.hybrid_layer(dataclasses.replace(cfg, **change), p,
+                           torch.tensor(x), B.LayerCtx())
 
 
 def test_prefill_runs_the_ssd_once_per_layer(pair, monkeypatch):

@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config as j_get_config  # noqa: E402
+from repro.configs.base import ARCH_IDS as J_ARCH_IDS  # noqa: E402
 from repro.launch.steps import make_prefill_step as j_prefill  # noqa: E402
 from repro.models import model as jM  # noqa: E402
 from repro.models import serving as jS  # noqa: E402
@@ -67,10 +68,12 @@ def test_config_matches_the_reference():
         assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert ARCH_IDS == ("arctic_480b", "qwen2_moe_a2_7b", "minicpm3_4b",
                         "deepseek_7b", "glm4_9b", "phi4_mini_3_8b",
-                        "hymba_1_5b", ARCH)
+                        "llama32_vision_11b", "hymba_1_5b", ARCH,
+                        "whisper_large_v3")
+    assert ARCH_IDS == J_ARCH_IDS  # all ten of the reference's, in its order
     assert get_config("mamba2-780m") is get_config(ARCH)
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("whisper_large_v3")  # encoder-decoder: not ported yet
+        get_config("gpt2_small")  # no such architecture in either package
     assert SHAPES["prefill_32k"].seq_len == 32_768
 
 
@@ -85,14 +88,58 @@ def test_param_count_and_specs_match_the_reference():
                                              jspecs[k].scale), k
 
 
-@pytest.mark.parametrize("change", [
-    dict(family="vlm", cross_every=2), dict(kind="encdec"),
-    dict(norm="layernorm"), dict(tie_embeddings=True), dict(act="gelu")],
-    ids=["vlm", "encdec", "layernorm", "tied", "gelu"])
+# the changes the port once refused, each on the reduced dense DeepSeek-7B
+# (Mamba-2's SSM layers take none of them in the reference either); the
+# reference's encoder reads a LayerNorm bias and a GELU MLP, so the
+# encoder-decoder change brings both
+FORMERLY_REFUSED = {
+    "vlm": dict(family="vlm", cross_every=2, vis_seq=16),
+    "encdec": dict(kind="encdec", enc_layers=2, enc_seq=16,
+                   norm="layernorm", act="gelu"),
+    "layernorm": dict(norm="layernorm"),
+    "tied": dict(tie_embeddings=True),
+    "gelu": dict(act="gelu"),
+}
+
+
+@pytest.mark.parametrize("change", list(FORMERLY_REFUSED.values()),
+                         ids=list(FORMERLY_REFUSED))
 def test_unported_configs_are_refused(change):
-    cfg = dataclasses.replace(get_config(ARCH).reduced(), **change)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        M.build_param_specs(cfg)
+    """Named for when the port refused these configs: each is ported now,
+    so the reduced config with the change builds the reference's specs
+    field by field and matches its ``forward`` logits within 5e-4
+    max(1, max|logit|) at f32 (a VLM's gates set non-zero and a vision
+    stub fed, an encoder-decoder's frame stub fed)."""
+    base = "deepseek_7b"
+    jcfg = dataclasses.replace(j_get_config(base).reduced(), dtype="float32",
+                               **change)
+    cfg = dataclasses.replace(get_config(base).reduced(), dtype="float32",
+                              **change)
+    specs = _flat(M.build_param_specs(cfg))
+    jspecs = _flat(jM.build_param_specs(jcfg))
+    assert set(specs) == set(jspecs)
+    for k, s in specs.items():
+        assert (s.shape, s.axes, s.scale) == (jspecs[k].shape, jspecs[k].axes,
+                                             jspecs[k].scale), k
+    jparams = jM.init_params(jcfg, jax.random.PRNGKey(5))
+    if "gate" in jparams.get("cross", {}):
+        jparams["cross"]["gate"] = jnp.full_like(jparams["cross"]["gate"], 0.8)
+    params = interop.lm_params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                          device="cpu")
+    rng = np.random.default_rng(6)
+    tokens = rng.integers(0, cfg.vocab, (2, 24))
+    stub = rng.normal(0, 1, (2, 16, cfg.d_model)).astype(np.float32)
+    kw = {}
+    if cfg.family == "vlm":
+        kw["vision"] = stub
+    if cfg.kind == "encdec":
+        kw["frames"] = stub
+    want = np.asarray(jM.forward(jcfg, jparams, jnp.asarray(tokens), **{
+        k: jnp.asarray(v) for k, v in kw.items()})[0])
+    got, _ = M.forward(cfg, params, torch.tensor(tokens), **{
+        k: torch.tensor(v) for k, v in kw.items()})
+    bound = 5e-4 * max(1.0, float(np.abs(want).max()))
+    assert float(np.abs(got.numpy() - want).max()) <= bound
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -269,6 +269,54 @@ def test_mla_attention_with_a_cache_matches_the_reference():
         assert not ckv[:, t + 1:].any() and bool(ckv[:, t].any())
 
 
+def _mla_steps(n, seed):
+    """A reduced MLA layer's params in both packages and its latent
+    caches of ``n`` slots after ``n - 1`` decode steps in each."""
+    jcfg, cfg = _cfgs()
+    jparams, params = _params(jcfg, 2)
+    jp = jax.tree.map(lambda t: t[0], jparams["layers"]["attn"])
+    p = tree_map(lambda t: t[0], params["layers"]["attn"])
+    x = np.random.default_rng(seed).normal(0, 1, (2, n, cfg.d_model)).astype(
+        np.float32)
+    kw, jkw = _mla_kw(cfg)
+    cache = tree_map(lambda t: t[0], S.init_caches(cfg, 2, n, device="cpu"))
+    jcache = jax.tree.map(lambda t: t[0], jS.init_caches(jcfg, 2, n))
+    jstep = jax.jit(lambda p, x, c, i: jL.mla_attention(
+        p, x, kv_cache=c, cache_index=i, **jkw))
+    for t in range(n - 1):
+        _, jcache = jstep(jp, jnp.asarray(x[:, t:t + 1]), jcache, jnp.int32(t))
+        L.mla_attention(p, torch.tensor(x[:, t:t + 1]), kv_cache=cache,
+                        cache_index=t, **kw)
+    return jp, p, jcache, cache, x, kw, jstep
+
+
+def test_mla_decode_writes_the_last_slot():
+    """The step at ``cache_index = S_max - 1`` lands in the last slot of
+    ``ckv`` and ``krope``, its output and the caches as the reference's."""
+    jp, p, jcache, cache, x, kw, jstep = _mla_steps(8, 9)
+    want, jcache = jstep(jp, jnp.asarray(x[:, 7:]), jcache, jnp.int32(7))
+    assert not cache["ckv"][:, 7].any()
+    got, _ = L.mla_attention(p, torch.tensor(x[:, 7:]), kv_cache=cache,
+                             cache_index=7, **kw)
+    assert bool(cache["ckv"][:, 7].any()) and bool(cache["krope"][:, 7].any())
+    _assert_layer_close(got, want)
+    for k in ("ckv", "krope"):
+        _assert_layer_close(cache[k], jcache[k], k)
+
+
+@pytest.mark.parametrize("index,s", [(8, 1), (7, 2), (20, 1)])
+def test_mla_decode_past_the_cache_raises(index, s):
+    """As GQA's: a write running past the latent cache's 8 slots raises
+    before anything is written (the reference clamps it)."""
+    _, p, _, cache, _, kw, _ = _mla_steps(8, 9)
+    before = {k: v.clone() for k, v in cache.items()}
+    with pytest.raises(ValueError, match="past the cache"):
+        L.mla_attention(p, torch.ones(2, s, 64), kv_cache=cache,
+                        cache_index=index, **kw)
+    for k in ("ckv", "krope"):
+        assert torch.equal(cache[k], before[k])
+
+
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
