@@ -20,7 +20,10 @@ layer), whose prefill runs the same kernel once per layer; the fifth is the
 MoE and multi-head latent attention decoders' (Qwen1.5-MoE-A2.7B,
 Arctic-480B, MiniCPM3-4B), and the sixth the vision-language and
 encoder-decoder models' (Llama-3.2-11B-Vision, Whisper-large-v3); these two
-paths hold no kernel.  Phases, any failure exits non-zero:
+paths hold no kernel.  The seventh is training (``launch.steps.
+make_train_step``, ``launch.train.train`` and its CLI), whose Mamba-2 and
+Hymba steps run the SSD kernel in the forward of an autograd Function with
+a plain backward.  Phases, any failure exits non-zero:
 
 1. build  — compile every kernel of the four paths from ``src/repro_torch/csrc``
    (one nvcc per source, started together); print the card's name and
@@ -143,7 +146,33 @@ paths hold no kernel.  Phases, any failure exits non-zero:
    (timed as Llama's); the cross check against a 1500-wide source; decode;
    ``serve``; 4 encoder and 4 decoder layers at f32, prefill against
    decode.  Each check prints one ``vlm {...}`` or ``encdec {...}`` line.
-9. ops — phase 3's ResNet-18 f32 and VGG-16 f32 batch-1 forwards observed
+9. train — through the port's training entry points, each check a
+   ``train {...}`` line, ending with a ``phase train: N s`` line.  Kernel
+   D's Function on layer 0's SSD inputs of an f32 Mamba-2-780m forward at
+   full width (2 x 4096, 4 layers): one counted launch, ``y`` and state
+   within ``plain_tol``, every input's gradient equal bit for bit to
+   plain autograd's under the same random upstream gradients.  The cell:
+   Mamba-2-780m at full width and depth, bf16, remat full, float32
+   moments, ``make_train_step(cfg, microbatches=2)`` on ``batch_at`` of 8
+   x 4096 tokens (``train_4k``'s sequence, its batch of 256 cut to 8): a
+   warm-up step and 3 timed (host clock ending in a synchronize), each
+   with 192 counted launches of D (48 layers x 2 for the remat recompute
+   x 2 microbatches) and its peak memory, step 0's loss against the
+   cross-entropy of ``forward``'s whole logits in f32 (1e-3 relative), the
+   params unchanged by step 0 (its learning rate is 0) and moved by step
+   1, D's forward calls, its plain backward, ``chunked_ce`` and the update
+   timed by CUDA events; D at the step's shapes against its plain version,
+   its 192 launches timed bare and bounded.  Then at full width and 4 of
+   48 layers, f32, 2 x 512 tokens: two steps on the card against the same
+   two on the CPU (losses and step 1's gradients per leaf within 1e-4),
+   and ``train`` in-process for 6 steps with a checkpoint at step 3,
+   resumed (the replayed last loss within 1e-4 relative); Hymba-1.5B at
+   full width and 4 of its 32 layers (global 0 and 3, sliding 1 and 2),
+   bf16, two steps of 2 x 4096 through the chunked attention (every
+   leaf's gradient finite and non-zero, 8 launches a step); and
+   ``python -m repro_torch.launch.train --arch deepseek_7b --steps 3`` as a
+   subprocess.
+10. ops — phase 3's ResNet-18 f32 and VGG-16 f32 batch-1 forwards observed
    and guarded (``repro_torch.obs``, ``repro_torch.robust``): each traced
    three times (per forward a span per launch with a positive CUDA-event
    time on this card, logits and skip maps as the untraced forward's, the
@@ -168,7 +197,7 @@ paths hold no kernel.  Phases, any failure exits non-zero:
    ``python -m repro_torch.obs.explain --model resnet18 --run --guard
    --trace FILE`` as a subprocess.  Its launches go on an ``ops launches``
    line of their own.
-10. serve — ResNet-18 at full width (224x224x3, 1000 classes, phase 3's
+11. serve — ResNet-18 at full width (224x224x3, 1000 classes, phase 3's
    params) through the serving engine (``repro_torch.net.serve``,
    ``ServeConfig(buckets=(1, 2, 4, 8))``, f32): two waves of the same
    seeded stream of 24 requests of 1-3 images, every request's logits
@@ -190,7 +219,7 @@ paths hold no kernel.  Phases, any failure exits non-zero:
    as subprocesses, ``--dry-stream`` and ``--inject slow_launch
    --breaker 1 --watchdog 3``.  Its launches go on a ``serve launches``
    line of their own.
-11. results — one ``{"kernels": [...]}`` line (for the pyramid kernels
+12. results — one ``{"kernels": [...]}`` line (for the pyramid kernels
    ``launches`` sums the four forwards, ``launches_per_forward`` splits
    it, and every time sums the per-launch medians over the dense pyramids
    of the four plans; for the SOP kernel ``launches_per_layer`` splits
@@ -198,8 +227,10 @@ paths hold no kernel.  Phases, any failure exits non-zero:
    launch, or the sum of its 64 plain calls' single timed spans; for the
    SSD kernel ``launches`` is the bf16 prefill's 48 and every time covers
    its 48 layers; a second entry of the SSD kernel, ``ssd_scan@hymba_1_5b``,
-   holds phase hybrid's 32 launches and times at Hymba's heads; each SSD
-   entry names its model under ``path``), then the ``{"ok": true,
+   holds phase hybrid's 32 launches and times at Hymba's heads, and a
+   third, ``ssd_scan@mamba2_780m_train``, phase train's 192 launches a
+   step with their bare time, plain time and bound at the step's shapes;
+   each SSD entry names its path under ``path``), then the ``{"ok": true,
    "device": ...}`` line last.
 
 Weights and inputs are random, made from fixed seeds.  The script imports
@@ -1917,7 +1948,7 @@ class MoePhase:
         from repro_torch.models.moe import moe_ffn
 
         ctx = B.LayerCtx(mode="prefill", chunked=True)
-        out, _ = B.moe_layer(cfg, p, x, ctx)
+        out, _, _ = B.moe_layer(cfg, p, x, ctx)
         xa = B._norm(cfg, x, p["attn_norm"])
         h, _ = B._self_attention(cfg, p["attn"], xa, ctx, None)
         x1 = x + h
@@ -2288,6 +2319,591 @@ class VlmPhase(MoePhase):
         self.summary["seconds"] = time.perf_counter() - t0
         print(f"phase vlm: {self.summary['seconds']:.1f} s", flush=True)
         return self.summary
+
+
+# ---- phase train ----------------------------------------------------------
+
+# Training through the port's entry points (``launch.steps.make_train_step``,
+# ``launch.train.train`` and its CLI).  The cell: Mamba-2-780m at full width
+# and depth in bf16 with ``remat="full"`` and float32 moments, on
+# ``train_4k``'s 4096-token sequences with its global batch of 256 cut to 8
+# for time and memory, in 2 microbatches of 4 (the forward of one matches
+# phase lm's checked prefill shape).  One warm-up step (step 0, whose
+# learning rate is 0), then 3 timed.
+TRAIN_ARCH = LM_ARCH
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 8
+TRAIN_MICRO = 2
+TRAIN_TIMED = 3
+# D's launches a step: 48 layers x 2 (the remat recompute) x 2 microbatches
+TRAIN_D_LAUNCHES = 48 * 2 * TRAIN_MICRO
+# D's autograd Function on layer 0's SSD inputs of an f32 forward at full
+# width (2 x 4096); the f32 card-vs-CPU steps and the restart run 4 of the
+# 48 layers at full width on 2 x 512 tokens (cut for time: the CPU runs the
+# same two steps)
+TRAIN_D_TOKENS = (2, 4096)
+TRAIN_CUT_LAYERS = 4
+TRAIN_CUT_TOKENS = (2, 512)
+TRAIN_RESTART_STEPS = 6
+TRAIN_CKPT_EVERY = 3
+# Hymba-1.5B at full width, 4 of its 32 layers (cut for time): layers 0 and
+# 3 global, 1 and 2 sliding (the window of 1024 bites at 4096 tokens)
+TRAIN_HY_LAYERS = 4
+TRAIN_HY_GLOBAL = (0, 3)
+TRAIN_HY_TOKENS = (2, 4096)
+TRAIN_CLI = ("--arch", "deepseek_7b", "--steps", "3")
+# step 0's loss against the cross-entropy of forward's whole logits in f32
+TRAIN_LOSS_RTOL = 1e-3
+# f32 card against CPU: losses, and step 1's gradients per leaf against
+# that leaf's max |grad| (the same f32 operations in another order, the
+# embedding's backward summed by atomics on the card)
+TRAIN_CPU_RTOL = 1e-4
+# the replayed last loss after a restart: the reference's own rtol
+# (tests/test_integration.py); CUDA's embedding backward sums with atomics,
+# so bitwise replay is not promised
+TRAIN_REPLAY_RTOL = 1e-4
+
+
+class TrainPhase(Lm):
+    """Phase train: the port's training path on the card.  Every check
+    prints one ``train {...}`` line; a failed check raises."""
+
+    TAG = "train"
+    ARCH = TRAIN_ARCH
+
+    # ---- instruments --------------------------------------------------
+
+    def _spans(self):
+        """Patch the step's parts with CUDA events: D's forward calls
+        (``ssm.ssd_scan``), the Function's plain backward
+        (``ops.ssd_scan_vjp``), ``chunked_ce`` (its forward, and its
+        backward from the loss's gradient to the hidden states') and the
+        optimizer update.  Returns ``(spans, restore)``; ``spans`` maps a
+        part to its list of event pairs."""
+        from repro_torch.kernels.ssd_scan import ops
+        from repro_torch.models import model as M
+        from repro_torch.models import ssm
+        from repro_torch.optim import adamw
+
+        torch = self.torch
+        spans = {k: [] for k in ("ssd_fwd", "ssd_bwd", "ce_fwd", "ce_bwd",
+                                 "update")}
+
+        def ev():
+            return torch.cuda.Event(enable_timing=True)
+
+        def timed(part, fn):
+            def wrapper(*a, **k):
+                e = (ev(), ev())
+                e[0].record()
+                out = fn(*a, **k)
+                e[1].record()
+                spans[part].append(e)
+                return out
+            return wrapper
+
+        real = (ssm.ssd_scan, ops.ssd_scan_vjp, M.chunked_ce,
+                adamw.AdamW.update)
+
+        def ce(cfg, params, hidden, targets, **kw):
+            out = timed("ce_fwd", real[2])(cfg, params, hidden, targets, **kw)
+            if out.requires_grad:
+                # the loss's gradient reaches ``out`` through an exact
+                # product by 1, so the hook is not the root's
+                e = (ev(), ev())
+                out.register_hook(lambda g: e[0].record())
+                hidden.register_hook(lambda g: e[1].record())
+                spans["ce_bwd"].append(e)
+                out = out * 1.0
+            return out
+
+        ssm.ssd_scan = timed("ssd_fwd", real[0])
+        ops.ssd_scan_vjp = timed("ssd_bwd", real[1])
+        M.chunked_ce = ce
+        adamw.AdamW.update = timed("update", real[3])
+
+        def restore():
+            (ssm.ssd_scan, ops.ssd_scan_vjp, M.chunked_ce,
+             adamw.AdamW.update) = real
+
+        return spans, restore
+
+    def _grads_of_updates(self):
+        """Patch ``AdamW.update`` to keep the gradients each update is
+        given.  Returns ``(kept, restore)``."""
+        from repro_torch.optim import adamw
+
+        kept = []
+        real = adamw.AdamW.update
+
+        def update(opt, grads, *a, **k):
+            kept.append(grads)
+            return real(opt, grads, *a, **k)
+
+        adamw.AdamW.update = update
+
+        def restore():
+            adamw.AdamW.update = real
+
+        return kept, restore
+
+    def _batch(self, cfg, shape, step):
+        from repro_torch.data.pipeline import DataConfig, batch_at
+
+        data = DataConfig(vocab=cfg.vocab, seq_len=shape[1],
+                          global_batch=shape[0])
+        return {"tokens": self.torch.from_numpy(
+            batch_at(data, step)["tokens"]).to(self.device)}
+
+    def _cut(self, dtype="float32"):
+        import dataclasses
+
+        return dataclasses.replace(self.cfg, n_layers=TRAIN_CUT_LAYERS,
+                                   dtype=dtype)
+
+    # ---- checks -------------------------------------------------------
+
+    def d_autograd(self) -> dict:
+        """Check 1: layer 0's SSD inputs of an f32 forward at full width,
+        through the Function (the kernel's forward, the plain backward) and
+        through ``ssd_scan_plain`` under autograd, with the same random
+        upstream gradients for ``y`` and the state: ``y`` and the state
+        within ``plain_tol``; every input's gradient present, finite and
+        equal bit for bit to plain autograd's (the backward recomputes the
+        same plain operations in the same order); one counted launch."""
+        from repro_torch.kernels import build
+        from repro_torch.kernels.ssd_scan import ops
+        from repro_torch.kernels.ssd_scan import ssd_scan as kd
+        from repro_torch.models import model as M
+        from repro_torch.models import ssm
+
+        torch = self.torch
+        cfg = self._cut()
+        params = M.init_params(cfg, 0, device=self.device)
+        seen = []
+        real = ssm.ssd_scan
+
+        def capture(*a, chunk):
+            if not seen:
+                seen.append(([t.detach().clone() for t in a], chunk))
+            return real(*a, chunk=chunk)
+
+        ssm.ssd_scan = capture
+        try:
+            with torch.no_grad():
+                M.hidden_forward(cfg, params, self._tokens(TRAIN_D_TOKENS, 11))
+        finally:
+            ssm.ssd_scan = real
+        del params
+        args, chunk = seen[0]
+        gen = torch.Generator(device=self.device).manual_seed(12)
+        b, S, H, P = args[0].shape
+        gy = torch.randn((b, S, H, P), generator=gen, device=self.device)
+        gs = torch.randn((b, H, P, args[3].shape[-1]), generator=gen,
+                         device=self.device)
+        names = ("x", "dt", "A", "B", "C", "D")
+        fn_in = [t.clone().requires_grad_() for t in args]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        build.reset_launch_counts()
+        ev[0].record()
+        y, state = ops.ssd_scan(*fn_in, chunk=chunk)
+        ev[1].record()
+        got = torch.autograd.grad((y, state), fn_in, (gy, gs))
+        ev[2].record()
+        counts = self._counts()
+        if counts != self._expect(1):
+            raise AssertionError(f"train d_autograd: launch counts {counts}")
+        if y.grad_fn is None:
+            raise AssertionError("train d_autograd: y has no autograd history")
+        pl_in = [t.clone().requires_grad_() for t in args]
+        py, ps = kd.ssd_scan_plain(*pl_in, chunk=chunk)
+        want = torch.autograd.grad((py, ps), pl_in, (gy, gs))
+        torch.cuda.synchronize()
+        y, state, py, ps = (t.detach() for t in (y, state, py, ps))
+        ey = float((y - py).abs().max())
+        es = float((state - ps).abs().max())
+        ty, ts = kd.plain_tol(py, torch.float32), kd.plain_tol(ps, torch.float32)
+        if not (ey <= ty and es <= ts):
+            raise AssertionError(f"train d_autograd: y err {ey} (tol {ty}),"
+                                 f" state err {es} (tol {ts})")
+        grad_err = {}
+        for n, g, w in zip(names, got, want):
+            if g is None or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"train d_autograd: d{n} missing or"
+                                     " not finite")
+            grad_err[n] = float((g - w).abs().max())
+        if any(grad_err.values()):
+            raise AssertionError(f"train d_autograd: gradients differ from"
+                                 f" plain autograd's: {grad_err} (limit:"
+                                 " equal bit for bit)")
+        row = dict(cell=f"D autograd f32 {b}x{S} (layer 0)",
+                   launches=counts[kd.SSD_SCAN.symbol], y_max_abs_err=ey,
+                   state_max_abs_err=es, y_tol=ty, state_tol=ts,
+                   grad_max_abs_diff=grad_err,
+                   grad_max_abs={n: float(g.abs().max())
+                                 for n, g in zip(names, got)},
+                   fwd_ms=ev[0].elapsed_time(ev[1]),
+                   bwd_ms=ev[1].elapsed_time(ev[2]))
+        self._print(row)
+        self.summary["d_autograd"] = row
+        return row
+
+    def full_step(self) -> dict:
+        """Check 2, the cell: Mamba-2-780m at full width and depth, bf16,
+        remat full, through ``make_train_step(cfg, microbatches=2)``.  One
+        warm-up step and ``TRAIN_TIMED`` timed, each with D's launches
+        counted (``TRAIN_D_LAUNCHES``) and the peak memory since just
+        before it; step 0's loss against the cross-entropy of ``forward``'s
+        whole logits in f32; the params after step 0 equal those before
+        (its learning rate is 0) and after step 1 not; the parts' device
+        time by CUDA events.  Layer 0's SSD inputs of the first forward
+        are kept for the kernel's entry."""
+        import torch.nn.functional as F
+
+        from repro_torch.kernels import build
+        from repro_torch.kernels.ssd_scan import ssd_scan as kd
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.models import model as M
+        from repro_torch.models import ssm
+        from repro_torch.models.params import leaves
+
+        torch, cfg = self.torch, self.cfg
+        shape = (TRAIN_BATCH, TRAIN_SEQ)
+        params = M.init_params(cfg, 0, device=self.device)
+        step_fn, opt = make_train_step(cfg, microbatches=TRAIN_MICRO)
+        state = opt.init(params)
+        captured = []
+        real = ssm.ssd_scan
+
+        def capture(*a, chunk):
+            if not captured:
+                captured.append((kd.prepare(*(t.detach() for t in a),
+                                            chunk=chunk), chunk))
+            return real(*a, chunk=chunk)
+
+        steps = []
+        for i in range(1 + TRAIN_TIMED):
+            batch = self._batch(cfg, shape, i)
+            spans, restore = self._spans() if i else ({}, lambda: None)
+            if not i:
+                ssm.ssd_scan = capture
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                new, state, loss = step_fn(params, state, batch)
+                torch.cuda.synchronize()
+            finally:
+                restore()
+                ssm.ssd_scan = real
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = self._counts()
+            if counts != self._expect(TRAIN_D_LAUNCHES):
+                raise AssertionError(f"train step {i}: launch counts {counts};"
+                                     f" want {TRAIN_D_LAUNCHES}")
+            loss = float(loss)
+            if not math.isfinite(loss):
+                raise AssertionError(f"train step {i}: loss {loss}")
+            moved = sum(int((a != b).sum()) for a, b in zip(leaves(new),
+                                                            leaves(params)))
+            if (moved > 0) != (i > 0):
+                raise AssertionError(f"train step {i}: {moved} param values"
+                                     " moved (step 0's learning rate is 0)")
+            row = dict(step=i, loss=loss, ms=ms,
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       moved=moved, launches=counts[kd.SSD_SCAN.symbol])
+            for part, evs in spans.items():
+                row[f"{part}_ms"] = sum(a.elapsed_time(b) for a, b in evs)
+                row[f"{part}_calls"] = len(evs)
+            if not i:
+                with torch.no_grad():
+                    toks = batch["tokens"]
+                    logits, _ = M.forward(cfg, params, toks[:, :-1])
+                    ce = float(F.cross_entropy(
+                        logits.float().reshape(-1, cfg.vocab),
+                        toks[:, 1:].reshape(-1).long()))
+                    del logits
+                row["forward_ce"] = ce
+                if abs(loss - ce) > TRAIN_LOSS_RTOL * abs(ce):
+                    raise AssertionError(f"train step 0: loss {loss} against"
+                                         f" the forward's cross-entropy {ce}")
+            params = new
+            steps.append(row)
+            self._print(dict(cell=f"train step bf16 {shape[0]}x{shape[1]}",
+                             **row))
+        timed = steps[1:]
+        ms = statistics.median(r["ms"] for r in timed)
+        parts = {p: statistics.median(r[f"{p}_ms"] for r in timed)
+                 for p in ("ssd_fwd", "ssd_bwd", "ce_fwd", "ce_bwd",
+                           "update")}
+        n_params = sum(t.numel() for t in leaves(params))
+        row = dict(cell=(f"train_4k bf16 {shape[0]}x{shape[1]}, remat full,"
+                         f" {TRAIN_MICRO} microbatches"),
+                   n_params=n_params, step_ms=ms,
+                   step_ms_runs=[r["ms"] for r in timed],
+                   tokens_per_s=shape[0] * shape[1] / ms * 1e3,
+                   peak_gb=max(r["peak_gb"] for r in timed),
+                   launches=TRAIN_D_LAUNCHES,
+                   losses=[r["loss"] for r in steps],
+                   step0_loss_vs_forward_ce=abs(steps[0]["loss"]
+                                                - steps[0]["forward_ce"]),
+                   **{f"{p}_ms": v for p, v in parts.items()},
+                   **{f"{p}_share": v / ms for p, v in parts.items()})
+        self._print(row)
+        self.summary["step_bf16"] = row
+        del params, new, state
+        self.torch.cuda.empty_cache()
+        self.kernel_at_train_shape(*captured[0])
+        return row
+
+    def kernel_at_train_shape(self, args, chunk) -> None:
+        """D at the step's shapes (one microbatch's layer-0 inputs): the
+        kernel against ``ssd_scan_plain`` (``plain_tol``), the
+        ``TRAIN_D_LAUNCHES`` launches of a step as one bare span behind a
+        device spin (median), the same calls of the plain version as one
+        span, and the bound of those launches."""
+        from repro_torch.kernels.ssd_scan import ssd_scan as kd
+
+        torch = self.torch
+        y, state = kd.ssd_scan_kernel(*args, chunk=chunk)
+        py, ps = kd.ssd_scan_plain(*args, chunk=chunk)
+        ey = float((y.float() - py.float()).abs().max())
+        es = float((state - ps).abs().max())
+        ty, ts = kd.plain_tol(py.float(), py.dtype), kd.plain_tol(ps, torch.float32)
+        if not (ey <= ty and es <= ts):
+            raise AssertionError(f"train D at the step's shapes: y err {ey}"
+                                 f" (tol {ty}), state err {es} (tol {ts})")
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def bare():
+            for _ in range(TRAIN_D_LAUNCHES):
+                kd.launch(*args, y, state, chunk, stream=stream)
+
+        ms = _median_ms(bare, torch)
+        kd.ssd_scan_plain(*args, chunk=chunk)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(TRAIN_D_LAUNCHES):
+            kd.ssd_scan_plain(*args, chunk=chunk)
+        b.record()
+        b.synchronize()
+        layers = [dict(args=args, chunk=chunk, state=state)] * TRAIN_D_LAUNCHES
+        row = dict(cell=f"D at the step's shapes {tuple(args[0].shape)}"
+                   f" {args[0].dtype}", launches=TRAIN_D_LAUNCHES,
+                   y_max_abs_err=ey, state_max_abs_err=es, ms=ms,
+                   plain_ms=a.elapsed_time(b), **self.bound(layers))
+        self._print(row)
+        self.summary["d_train_shape"] = row
+
+    def card_vs_cpu(self) -> dict:
+        """Check 3: Mamba-2-780m at full width and ``TRAIN_CUT_LAYERS``
+        layers, f32, two ``make_train_step`` steps from the same params on
+        the same batches, on the card (kernel D) and on the CPU (its plain
+        version): the losses within ``TRAIN_CPU_RTOL`` relative, step 1's
+        gradients per leaf within ``TRAIN_CPU_RTOL`` of the leaf's max
+        |grad| (the worst leaf printed), D's launches a step counted."""
+        from repro_torch.checkpoint.checkpointer import leaf_paths
+        from repro_torch.kernels import build
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.models import model as M
+        from repro_torch.models.params import tree_map
+
+        torch = self.torch
+        cfg = self._cut()
+        params = M.init_params(cfg, 0, device=self.device)
+        cpu = torch.device("cpu")
+        runs = []
+        for dev, p in ((self.device, params),
+                       (cpu, tree_map(lambda t: t.to(cpu), params))):
+            step_fn, opt = make_train_step(cfg)
+            state = opt.init(p)
+            kept, restore = self._grads_of_updates()
+            losses, ms = [], []
+            try:
+                for i in range(2):
+                    batch = {k: v.to(dev) for k, v in
+                             self._batch(cfg, TRAIN_CUT_TOKENS, i).items()}
+                    build.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    p, state, loss = step_fn(p, state, batch)
+                    losses.append(float(loss))
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    want = 2 * cfg.n_layers if dev == self.device else 0
+                    if self._counts() != self._expect(want):
+                        raise AssertionError(f"train card vs CPU ({dev}):"
+                                             f" launch counts {self._counts()}")
+            finally:
+                restore()
+            runs.append(dict(losses=losses, ms=ms,
+                             grads=tree_map(lambda t: t.to(cpu), kept[1])))
+        card, host = runs
+        for a, b in zip(card["losses"], host["losses"]):
+            if not abs(a - b) <= TRAIN_CPU_RTOL * abs(b):
+                raise AssertionError(f"train card vs CPU: losses {card['losses']}"
+                                     f" against {host['losses']}")
+        worst = (0.0, "")
+        for (path, g), (_, h) in zip(leaf_paths(card["grads"]),
+                                     leaf_paths(host["grads"])):
+            mag = float(h.abs().max())
+            ratio = float((g - h).abs().max()) / mag if mag else float(
+                g.abs().max())
+            worst = max(worst, (ratio, path))
+        if not worst[0] <= TRAIN_CPU_RTOL:
+            raise AssertionError(f"train card vs CPU: step 1's gradient of"
+                                 f" {worst[1]} off by {worst[0]} of its max")
+        row = dict(cell=(f"f32 {TRAIN_CUT_LAYERS} layers {TRAIN_CUT_TOKENS[0]}x"
+                         f"{TRAIN_CUT_TOKENS[1]}, card vs CPU, 2 steps"),
+                   card_losses=card["losses"], cpu_losses=host["losses"],
+                   card_ms=card["ms"], cpu_ms=host["ms"],
+                   worst_grad_leaf=worst[1], worst_grad_rel_err=worst[0],
+                   launches_per_step=2 * cfg.n_layers)
+        self._print(row)
+        self.summary["card_vs_cpu_f32"] = row
+        return row
+
+    def restart(self) -> dict:
+        """Check 4: ``train`` in-process on the card at check 3's cut, 6
+        steps with a checkpoint at step 3, then resumed from it: the
+        replayed last loss within ``TRAIN_REPLAY_RTOL``."""
+        from repro_torch.launch.train import train
+
+        cfg = self._cut()
+        kw = dict(reduced=False, steps=TRAIN_RESTART_STEPS,
+                  seq_len=TRAIN_CUT_TOKENS[1], global_batch=TRAIN_CUT_TOKENS[0],
+                  log_every=100, device=self.device)
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            first = train(cfg, ckpt_dir=d, ckpt_every=TRAIN_CKPT_EVERY, **kw)
+            first_s = time.perf_counter() - t0
+            resumed = train(cfg, ckpt_dir=d, ckpt_every=100, resume=True, **kw)
+        if not (len(first) == TRAIN_RESTART_STEPS
+                and len(resumed) == TRAIN_RESTART_STEPS - TRAIN_CKPT_EVERY - 1
+                and all(math.isfinite(v) for v in first + resumed)):
+            raise AssertionError(f"train restart: losses {first}, {resumed}")
+        err = abs(resumed[-1] - first[-1])
+        if not err <= TRAIN_REPLAY_RTOL * abs(first[-1]):
+            raise AssertionError(f"train restart: replayed last loss"
+                                 f" {resumed[-1]} against {first[-1]}")
+        row = dict(cell=(f"train() f32 {TRAIN_CUT_LAYERS} layers, "
+                         f"{TRAIN_RESTART_STEPS} steps, checkpoint at step "
+                         f"{TRAIN_CKPT_EVERY}, resumed"),
+                   losses=first, resumed=resumed, replay_abs_err=err,
+                   first_run_s=first_s)
+        self._print(row)
+        self.summary["restart_f32"] = row
+        return row
+
+    def hymba(self) -> dict:
+        """Check 5: Hymba-1.5B at full width and ``TRAIN_HY_LAYERS``
+        layers (global ``TRAIN_HY_GLOBAL``, the rest sliding), bf16, two
+        train steps of 2 x 4096 through the repaired chunked attention:
+        losses finite, every leaf's gradient finite and not all zero, D's
+        launches a step counted (a layer's forward and its recompute)."""
+        import dataclasses
+
+        from repro_torch.checkpoint.checkpointer import leaf_paths
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import build
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.models import model as M
+
+        torch = self.torch
+        cfg = dataclasses.replace(get_config(HY_ARCH), n_layers=TRAIN_HY_LAYERS,
+                                  global_layers=TRAIN_HY_GLOBAL)
+        params = M.init_params(cfg, 0, device=self.device)
+        step_fn, opt = make_train_step(cfg)
+        state = opt.init(params)
+        kept, restore = self._grads_of_updates()
+        losses, ms = [], []
+        try:
+            for i in range(2):
+                batch = self._batch(cfg, TRAIN_HY_TOKENS, i)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                build.reset_launch_counts()
+                t0 = time.perf_counter()
+                params, state, loss = step_fn(params, state, batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(loss))
+                if self._counts() != self._expect(2 * cfg.n_layers):
+                    raise AssertionError(f"train hymba step {i}: launch counts"
+                                         f" {self._counts()}")
+        finally:
+            restore()
+        bad = [p for grads in kept for p, g in leaf_paths(grads)
+               if not bool(torch.isfinite(g).all()) or not bool(g.any())]
+        if bad or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"train hymba: losses {losses}; gradients"
+                                 f" not finite or all zero: {bad}")
+        row = dict(cell=(f"hymba bf16 {TRAIN_HY_LAYERS} layers (global"
+                         f" {list(TRAIN_HY_GLOBAL)}) {TRAIN_HY_TOKENS[0]}x"
+                         f"{TRAIN_HY_TOKENS[1]}, 2 steps"),
+                   losses=losses, step_ms=ms,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   leaves=len(leaf_paths(kept[0])),
+                   launches_per_step=2 * cfg.n_layers)
+        self._print(row)
+        self.summary["hymba_bf16"] = row
+        return row
+
+    def cli(self) -> dict:
+        """Check 6: ``python -m repro_torch.launch.train`` with
+        ``TRAIN_CLI`` (the reduced config, on the card) as a subprocess:
+        exit 0, a loss line for steps 0 and 2, finite, and the summary
+        line."""
+        self.torch.cuda.empty_cache()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        for line in proc.stdout.splitlines():
+            print(f"train cli| {line}", flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"train cli exited {proc.returncode}:"
+                                 f" {proc.stderr[-4000:]}")
+        losses = [float(line.split()[-1]) for line in proc.stdout.splitlines()
+                  if line.startswith("step ")]
+        if (len(losses) != 2 or not all(math.isfinite(v) for v in losses)
+                or not proc.stdout.splitlines()[-1].startswith("first loss")):
+            raise AssertionError(f"train cli: output {proc.stdout[-2000:]}")
+        row = dict(cell="train cli " + " ".join(TRAIN_CLI), losses=losses,
+                   seconds=time.perf_counter() - t0)
+        self._print(row)
+        self.summary["cli"] = row
+        return row
+
+    def run(self) -> dict:
+        """The six checks; returns kernel D's training entry of the
+        kernels line."""
+        from repro_torch.kernels.ssd_scan import ssd_scan as kd
+
+        t0 = time.perf_counter()
+        d = self.d_autograd()
+        self.torch.cuda.empty_cache()
+        step = self.full_step()
+        for check in (self.card_vs_cpu, self.restart, self.hymba, self.cli):
+            self.torch.cuda.empty_cache()
+            check()
+        self.summary["seconds"] = time.perf_counter() - t0
+        print(f"phase train: {self.summary['seconds']:.1f} s", flush=True)
+        k = self.summary["d_train_shape"]
+        return dict(
+            name=f"{kd.SSD_SCAN.symbol}@{self.ARCH}_train",
+            path=f"{self.ARCH} train step", route="cuda",
+            source=kd.SSD_SCAN.source, replaces=kd.SSD_SCAN.replaces,
+            launches=step["launches"],
+            max_abs_err=max(k["y_max_abs_err"], k["state_max_abs_err"],
+                            d["y_max_abs_err"], d["state_max_abs_err"]),
+            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], ops_ms_f32=k["ops_ms_f32"],
+            fwd_call_ms=step["ssd_fwd_ms"], plain_bwd_ms=step["ssd_bwd_ms"],
+            # no single PyTorch call computes the SSD chunk scan
+            library_ms=None,
+        )
 
 
 # ---- phase ops ------------------------------------------------------------
@@ -3256,6 +3872,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         vlm = VlmPhase(torch, device).run()
         torch.cuda.empty_cache()
+        train = TrainPhase(torch, device)
+        ssd_train = train.run()
+        torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tmp:
             ops = Ops(smoke, Path(tmp) if args.out is None
                       else args.out.parent).run()
@@ -3278,6 +3897,7 @@ def main(argv=None) -> int:
         kernels.append(sop)
         kernels.append(ssd)
         kernels.append(ssd_hybrid)
+        kernels.append(ssd_train)
         if args.out is not None:
             args.out.parent.mkdir(parents=True, exist_ok=True)
             args.out.write_text(json.dumps(dict(
@@ -3289,6 +3909,7 @@ def main(argv=None) -> int:
                 hybrid=hybrid.summary,
                 moe=moe,
                 vlm=vlm,
+                train=train.summary,
                 ops=ops,
                 serve=serve,
                 seconds=time.perf_counter() - t0,

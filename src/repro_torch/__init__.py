@@ -12,6 +12,11 @@ kept beside it with the same layout and names:
   and the plan-driven ``run_network``;
 * :mod:`repro_torch.obs`, :mod:`repro_torch.robust` — tracing and the typed
   errors;
+* :mod:`repro_torch.configs`, :mod:`repro_torch.models`,
+  :mod:`repro_torch.launch` — the language models, their serving and
+  training entry points, with :mod:`repro_torch.optim`,
+  :mod:`repro_torch.data`, :mod:`repro_torch.checkpoint` and
+  :mod:`repro_torch.runtime` for training;
 * :mod:`repro_torch.interop` — carries the reference's numpy params across.
 
 The package imports ``torch`` and numpy, never ``jax`` and never anything

@@ -1,12 +1,13 @@
-"""Carry the reference package's params into the port.
+"""Carry the reference package's params and optimizer states into the port.
 
 The reference (JAX) and the port share layouts — HWIO ``(K, K, Cin, Cout)``
-conv weights, ``(fan_in, n_out)`` dense weights and ``(Cout,)`` biases, and
-the language models' stacked ``(L, ...)`` layer params and ``(L, B, ...)``
-caches — so the same numbers give the same function in both.  These
-helpers take the reference's params as numpy arrays (``np.asarray`` of each
-leaf; any array-like works) and return the port's tensors.  Nothing here imports
-JAX: the caller converts on its side.
+conv weights, ``(fan_in, n_out)`` dense weights and ``(Cout,)`` biases, the
+language models' stacked ``(L, ...)`` layer params and ``(L, B, ...)``
+caches, and AdamW's moments in the params' tree — so the same numbers give
+the same function in both.  These helpers take the reference's trees as
+numpy arrays (``np.asarray`` of each leaf; any array-like works) and return
+the port's tensors.  Nothing here imports JAX: the caller converts on its
+side.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import torch
 
 from repro_torch.core import resolve_device
 from repro_torch.core.executor import PyramidParams
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.optim.grad_compress import CompressState
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -64,3 +67,19 @@ def lm_params_from_numpy(tree: dict, device=None) -> dict:
         return _tensor(t, dev)
 
     return walk(tree)
+
+
+def adamw_state_from_numpy(state, device=None) -> AdamWState:
+    """The reference's ``AdamWState`` (``step``, ``mu``, ``nu``), its
+    leaves numpy-convertible (``jax.tree.map(np.asarray, state)``) -> the
+    port's :class:`~repro_torch.optim.adamw.AdamWState` on ``device``
+    (``None`` = the CUDA card), moments in their own dtype."""
+    return AdamWState(step=_tensor(state.step, resolve_device(device)),
+                      mu=lm_params_from_numpy(state.mu, device),
+                      nu=lm_params_from_numpy(state.nu, device))
+
+
+def compress_state_from_numpy(state, device=None) -> CompressState:
+    """The reference's ``CompressState`` (the bf16 error-feedback tree) ->
+    the port's :class:`~repro_torch.optim.grad_compress.CompressState`."""
+    return CompressState(error=lm_params_from_numpy(state.error, device))

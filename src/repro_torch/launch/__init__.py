@@ -1,2 +1,3 @@
-"""Entry points of the port's language-model path: the prefill and decode
-step builders (:mod:`.steps`) and the serving loop (:mod:`.serve`)."""
+"""Entry points of the port's language-model path: the train, prefill and
+decode step builders (:mod:`.steps`), the training loop (:mod:`.train`)
+and the serving loop (:mod:`.serve`)."""

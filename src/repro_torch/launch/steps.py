@@ -1,16 +1,89 @@
-"""Step builders for the prefill and decode cells.
+"""Step builders for the train, prefill and decode cells.
 
-The port of ``make_prefill_step`` and ``make_decode_step`` from the
-reference's ``repro.launch.steps``.  The steps are plain functions (PyTorch
-runs eagerly; nothing is traced); training steps and the dry-run's
-abstract inputs wait for ``optim``.
+The port of ``make_optimizer``, ``make_train_step``, ``make_prefill_step``
+and ``make_decode_step`` from the reference's ``repro.launch.steps``.  The
+steps are plain functions (PyTorch runs eagerly; nothing is traced).  The
+dry run's abstract inputs (``input_specs``) wait for the port's dry run.
 """
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
 from repro_torch.models import serving as S
+from repro_torch.models.params import leaves, tree_map, tree_unflatten
+from repro_torch.optim.adamw import AdamW
+from repro_torch.optim.schedule import warmup_cosine
+
+MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def make_optimizer(cfg: ArchConfig) -> AdamW:
+    return AdamW(moment_dtype=MOMENT_DTYPES[cfg.moment_dtype])
+
+
+def _value_and_grad(cfg, params, batch):
+    """``lm_loss`` and its gradient for every param leaf, in
+    :func:`~repro_torch.models.params.leaves` order (zeros for a leaf the
+    loss does not reach, as ``jax.grad`` gives)."""
+    ps = tree_map(lambda t: t.detach().requires_grad_(), params)
+    flat = leaves(ps)
+    loss = M.lm_loss(cfg, ps, batch)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(flat, grads)]
+
+
+def _split(name, t, microbatches):
+    """``t`` as ``(microbatches, B / microbatches, ...)``; a batch that
+    does not divide evenly is refused, as the reference's reshape does."""
+    if t.shape[0] % microbatches:
+        raise ValueError(f"batch[{name!r}] has {t.shape[0]} rows, which "
+                         f"do not split into {microbatches} microbatches")
+    return t.reshape((microbatches, t.shape[0] // microbatches)
+                     + tuple(t.shape[1:]))
+
+
+def make_train_step(cfg: ArchConfig, *, microbatches: int = 1,
+                    accum_dtype=torch.float32, grad_dtype=None):
+    """``(train_step, opt)``: ``train_step(params, opt_state, batch) ->
+    (new_params, new_state, loss)``, one AdamW update of ``lm_loss`` at
+    the learning rate ``warmup_cosine(opt_state.step)``, read before the
+    step counts up, so a run's first step moves nothing.  The params stay
+    untouched (the update is functional).
+
+    With ``microbatches > 1`` the batch splits along its first dimension
+    into equal parts (a ``ValueError`` if it does not divide); each part's
+    gradient is divided by ``microbatches`` and added into
+    ``accum_dtype`` buffers, its loss likewise, and one update follows.
+    ``grad_dtype`` casts a single batch's gradients before the update
+    (the reference's reduce-bytes option)."""
+    opt = make_optimizer(cfg)
+
+    def train_step(params, opt_state, batch):
+        if microbatches == 1:
+            loss, grads = _value_and_grad(cfg, params, batch)
+            if grad_dtype is not None:
+                grads = [g.to(grad_dtype) for g in grads]
+        else:
+            loss = 0.0
+            grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+                     for p in leaves(params)]
+            parts = {k: _split(k, v, microbatches) for k, v in batch.items()}
+            for i in range(microbatches):
+                loss_i, g_i = _value_and_grad(
+                    cfg, params, {k: v[i] for k, v in parts.items()})
+                loss = loss + loss_i / microbatches
+                for a, g in zip(grads, g_i):
+                    a.add_(g.to(a.dtype) / microbatches)
+        lr_scale = warmup_cosine(opt_state.step)
+        new_params, new_state = opt.update(tree_unflatten(params, grads),
+                                           opt_state, params, lr_scale)
+        return new_params, new_state, loss
+
+    return train_step, opt
 
 
 def make_prefill_step(cfg: ArchConfig):

@@ -1,15 +1,14 @@
 """Per-family layer bodies.
 
 The port of the reference's ``repro.models.blocks``.  Every body has the
-signature ``(cfg, p, x, ctx, cache) -> (x, new_cache)``, where ``ctx`` is a
-:class:`LayerCtx` carrying the mode, the attention switches and the
-auxiliary inputs (the vision stub, the encoder's states);
-:mod:`repro_torch.models.model` loops the bodies over stacked params.  The
-reference's bodies also return a per-layer aux loss, which only its
-training loss reads: :func:`moe_layer` computes it (through
-:func:`~repro_torch.models.moe.moe_ffn`) and drops it until the port has
-training, and :func:`cross_attn_block`, whose aux is a constant 0, returns
-the hidden states alone.
+signature ``(cfg, p, x, ctx, cache) -> (x, new_cache, aux)``, where
+``ctx`` is a :class:`LayerCtx` carrying the mode, the attention switches
+and the auxiliary inputs (the vision stub, the encoder's states);
+:mod:`repro_torch.models.model` loops the bodies over stacked params and
+sums their ``aux``, the per-layer load-balance loss that
+:func:`moe_layer` takes from :func:`~repro_torch.models.moe.moe_ffn` and
+every other body returns as ``0.0``.  :func:`cross_attn_block` returns
+``(x, 0.0)``, as the reference's.
 """
 
 from __future__ import annotations
@@ -104,23 +103,21 @@ def dense_layer(cfg, p, x, ctx: LayerCtx, cache=None):
     x = x + h
     x = x + _ffn(cfg, p["ffn"],
                  _norm(cfg, x, p["ffn_norm"], p.get("ffn_norm_b")))
-    return x, new_cache
+    return x, new_cache, 0.0
 
 
 def moe_layer(cfg, p, x, ctx: LayerCtx, cache=None):
     """MoE block: attention + routed experts (+ shared experts when
     ``n_shared_experts``, + a dense residual MLP when ``dense_residual``),
     all three on the same normed input.  The tokens split into ``max(1,
-    tokens // cfg.moe_group_tokens)`` dispatch groups.  The load-balance
-    aux that :func:`moe_ffn` returns is dropped: serving never reads it,
-    and the training slice brings back the reference's ``(x, cache, aux)``
-    bodies."""
+    tokens // cfg.moe_group_tokens)`` dispatch groups.  ``aux`` is the
+    load-balance loss that :func:`moe_ffn` returns."""
     h, new_cache = _self_attention(
         cfg, p["attn"], _norm(cfg, x, p["attn_norm"]), ctx, cache)
     x = x + h
     xn = _norm(cfg, x, p["ffn_norm"])
     tokens = xn.shape[0] * xn.shape[1]
-    y, _aux = moe_ffn(
+    y, aux = moe_ffn(
         p["moe"],
         xn,
         n_experts=cfg.n_experts,
@@ -132,7 +129,7 @@ def moe_layer(cfg, p, x, ctx: LayerCtx, cache=None):
         y = y + _ffn(cfg, p["shared"], xn)
     if cfg.dense_residual:
         y = y + _ffn(cfg, p["dense"], xn)
-    return x + y, new_cache
+    return x + y, new_cache, aux
 
 
 def ssm_layer(cfg, p, x, ctx: LayerCtx, cache=None):
@@ -148,7 +145,7 @@ def ssm_layer(cfg, p, x, ctx: LayerCtx, cache=None):
         chunk=cfg.ssd_chunk,
         ssm_cache=cache,
     )
-    return x + h, new_cache
+    return x + h, new_cache, 0.0
 
 
 def hybrid_layer(cfg, p, x, ctx: LayerCtx, cache=None):
@@ -177,7 +174,7 @@ def hybrid_layer(cfg, p, x, ctx: LayerCtx, cache=None):
     new_cache = None
     if cache is not None:
         new_cache = {"attn": new_attn, "ssm": new_ssm}
-    return x, new_cache
+    return x, new_cache, 0.0
 
 
 def _cross_chunks(sq: int, skv: int) -> tuple[int, int]:
@@ -202,7 +199,7 @@ def cross_attn_block(cfg, p, x, kv_src, ctx: LayerCtx, kv_cache=None):
     it is read, never written.  Non-causal attention: flash-chunked on the
     grid of :func:`_cross_chunks` past 2048 queries, dense below.  The
     output is scaled by ``tanh(gate)`` when the params have a ``gate``.
-    Returns the new hidden states.
+    Returns ``(x, 0.0)``: the new hidden states and the layer's aux.
     """
     xn = _norm(cfg, x, p["norm"], p.get("norm_b"))
     q = torch.einsum("bsd,dhk->bshk", xn, p["wq"])
@@ -221,4 +218,4 @@ def cross_attn_block(cfg, p, x, kv_src, ctx: LayerCtx, kv_cache=None):
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if "gate" in p:
         y = torch.tanh(p["gate"]) * y
-    return x + y
+    return x + y, 0.0

@@ -156,6 +156,10 @@ def chunked_attention(
     default ``skip_masked_blocks`` does: causal skips the future blocks, a
     sliding window both tails.  A block the masks leave wholly visible is
     not masked (the same numbers: the mask would keep every score).
+    The block's scores are scaled and masked in place (no backward keeps
+    them until ``amax``), and the softmax numerator is taken out of place:
+    ``amax`` keeps the scores for its backward, so autograd differentiates
+    the loop.
     """
     b, sq, h, d = q.shape
     skv = k.shape[1]
@@ -199,7 +203,8 @@ def chunked_attention(
                 mask = _mask(q0 + q_ar, k0 + k_ar, causal, window)
                 logits.masked_fill_(~mask[None, None], NEG_INF)
             m_new = torch.maximum(m, logits.amax(dim=-1))
-            p = logits.sub_(m_new[..., None]).exp_()
+            # out of place: amax keeps ``logits`` for its backward
+            p = (logits - m_new[..., None]).exp_()
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
             acc = acc * corr[..., None] + torch.einsum(

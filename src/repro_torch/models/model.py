@@ -1,4 +1,4 @@
-"""Model assembly: param specs and the forward over the layer stack.
+"""Model assembly: param specs, the forward over the layer stack, the loss.
 
 The port of the reference's ``repro.models.model`` for every family:
 ``ssm`` (Mamba-2, one ``ssm_layer`` a layer), ``dense`` (``dense_layer``,
@@ -13,17 +13,32 @@ frame stub, then decoder layers of self- and cross-attention), with
 RMSNorm or LayerNorm, SwiGLU or GELU, and an untied or tied head.  The
 reference's ``lax.scan`` over a stack of ``(L, ...)`` params is a Python
 loop over the leading dimension; its sharding constraints (the identity on
-one device) and remat are gone (no training in the port yet), and so is
-the aux-loss sum, which only training reads: :func:`forward` returns
-``(logits, caches)`` where the reference returns ``(logits, aux,
-caches)``.  Caches are updated in place.
+one device) are gone.  :func:`forward` and :func:`hidden_forward` return
+``(out, caches)`` where the reference returns ``(out, aux, caches)``: the
+layers' summed aux loss reaches :func:`lm_loss` through the helper they
+share (:func:`_forward_aux`).  Caches are updated in place.
+
+Training: :func:`lm_loss` is the next-token cross-entropy by
+:func:`chunked_ce`, which never keeps the ``(B, S, V)`` logits for the
+backward, plus the MoE aux.  ``cfg.remat`` recomputes each layer in the
+backward as the reference's ``jax.checkpoint`` does: ``full`` keeps only
+the layer's inputs (``torch.utils.checkpoint``), ``dots`` also keeps its
+matmul outputs (a selective-checkpoint policy, the reference's
+``checkpoint_dots``).  Remat applies where autograd records a forward
+without caches: some param or input requires grad.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import replace
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import resolve_device
@@ -46,7 +61,7 @@ _BODY = {"dense": dense_layer, "moe": moe_layer, "ssm": ssm_layer,
 # each config field the forward branches on, and the values it knows
 _CHOICES = {"family": tuple(_BODY), "attn_kind": ("gqa", "mla"),
             "kind": ("decoder", "encdec"), "norm": ("rmsnorm", "layernorm"),
-            "act": ("swiglu", "gelu")}
+            "act": ("swiglu", "gelu"), "remat": ("none", "full", "dots")}
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -173,6 +188,16 @@ def _layers(tree, lo: int, hi: int):
     return tree_map(lambda t: t[lo:hi], tree)
 
 
+def _unstack(tree) -> list:
+    """A stacked ``(L, ...)`` tree as ``L`` per-layer trees of views.  One
+    ``unbind`` a leaf: its backward stacks the layers' gradients once,
+    where indexing layer by layer would add a zero-padded ``(L, ...)``
+    gradient per layer."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    n = len(prm.leaves(parts)[0])
+    return [tree_map(lambda ts, i=i: ts[i], parts) for i in range(n)]
+
+
 def _write_back(cache, new) -> None:
     """Copy a layer's new cache into its slot of the stacked caches; a
     tensor the layer already updated in place is left alone."""
@@ -183,25 +208,67 @@ def _write_back(cache, new) -> None:
         cache.copy_(new)
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep matmul outputs, recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _records(*trees) -> bool:
+    """Whether autograd records a call on ``trees`` (tensors or nested
+    dicts of them): grad mode is on and some tensor requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for tree in trees for t in prm.leaves(tree))
+
+
+def _remat(cfg, fn):
+    """``fn`` (one layer) under ``cfg.remat`` when autograd records the
+    call: ``full`` saves only its inputs and recomputes it in the
+    backward, ``dots`` saves its matmul outputs too.  A call that nothing
+    differentiates (inference) runs ``fn`` as it is.  The layers draw no
+    random numbers, so no RNG state is stashed."""
+    if cfg.remat == "none":
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return lambda *args: (checkpoint(fn, *args, **kw) if _records(*args)
+                          else fn(*args))
+
+
 def _stack(cfg, body, x, stacked_params, ctx: LayerCtx, caches=None):
-    """Run a homogeneous layer stack in order.  ``caches`` (stacked ``(L,
-    B, ...)``) are updated in place, layer by layer."""
-    for i in range(prm.leaves(stacked_params)[0].shape[0]):
-        p = tree_map(lambda t: t[i], stacked_params)
+    """Run a homogeneous layer stack in order; returns ``(x, aux)``, the
+    layers' aux summed.  Without ``caches`` each layer runs under
+    :func:`_remat`; ``caches`` (stacked ``(L, B, ...)``) are updated in
+    place, layer by layer."""
+    aux = 0.0
+    step = _remat(cfg, lambda p, x: body(cfg, p, x, ctx, None))
+    for i, p in enumerate(_unstack(stacked_params)):
         if caches is None:
-            x, _ = body(cfg, p, x, ctx, None)
+            x, _, a = step(p, x)
         else:
             cache = tree_map(lambda t: t[i], caches)
-            x, new_cache = body(cfg, p, x, ctx, cache)
+            x, new_cache, a = body(cfg, p, x, ctx, cache)
             _write_back(cache, new_cache)
-    return x
+        aux = aux + a
+    return x, aux
 
 
 def _hymba_forward(cfg, params, x, ctx: LayerCtx, caches=None):
     """The segments in order: a global layer attends over everything
     (``window = 0``), a sliding segment within ``cfg.window``; each takes
-    its own slice of the ``global`` or ``sliding`` stacks and caches."""
+    its own slice of the ``global`` or ``sliding`` stacks and caches.
+    Every layer runs under :func:`_remat`, the global ones too (the
+    reference calls those outside its remat'd scan: the same values,
+    another memory trade).  Returns ``(x, aux)``."""
     gi = si = 0
+    aux = 0.0
     for kind, count in _hymba_segments(cfg):
         if kind == "g":
             part, lo, window = "global", gi, 0
@@ -211,26 +278,31 @@ def _hymba_forward(cfg, params, x, ctx: LayerCtx, caches=None):
             si += count
         cache = (None if caches is None
                  else _layers(caches[part], lo, lo + count))
-        x = _stack(cfg, hybrid_layer, x, _layers(params[part], lo, lo + count),
-                   replace(ctx, window=window), cache)
-    return x
+        x, a = _stack(cfg, hybrid_layer, x,
+                      _layers(params[part], lo, lo + count),
+                      replace(ctx, window=window), cache)
+        aux = aux + a
+    return x, aux
 
 
 def _vlm_forward(cfg, params, x, ctx: LayerCtx, caches=None):
     """Each group's ``cross_every - 1`` self layers, then its gated cross
     layer over ``ctx.vision`` (or, in decode, over the group's cross
     cache, which passes through unchanged).  The nested self caches
-    ``(n_cross, cross_every - 1, B, ...)`` are updated in place."""
-    for gi in range(cfg.n_layers // cfg.cross_every):
+    ``(n_cross, cross_every - 1, B, ...)`` are updated in place.  The
+    cross layers run without remat, as the reference's.  Returns ``(x,
+    aux)``."""
+    aux = 0.0
+    groups = _unstack(params["layers"])
+    for gi, cp in enumerate(_unstack(params["cross"])):
         cache = (None if caches is None
                  else tree_map(lambda t: t[gi], caches["self"]))
-        x = _stack(cfg, dense_layer, x,
-                   tree_map(lambda t: t[gi], params["layers"]), ctx, cache)
+        x, a = _stack(cfg, dense_layer, x, groups[gi], ctx, cache)
+        aux = aux + a
         cross = (None if caches is None
                  else tree_map(lambda t: t[gi], caches["cross"]))
-        x = cross_attn_block(cfg, tree_map(lambda t: t[gi], params["cross"]),
-                             x, ctx.vision, ctx, cross)
-    return x
+        x, _ = cross_attn_block(cfg, cp, x, ctx.vision, ctx, cross)
+    return x, aux
 
 
 def _whisper_encoder(cfg, params, frames):
@@ -238,31 +310,38 @@ def _whisper_encoder(cfg, params, frames):
     non-causal and unchunked attention (with RoPE, as the reference's),
     then the final LayerNorm."""
     ctx = LayerCtx(mode="train", causal=False)
-    x = _stack(cfg, dense_layer, frames, params["encoder"], ctx)
+    x, _ = _stack(cfg, dense_layer, frames, params["encoder"], ctx)
     return layer_norm(x, params["enc_final_norm"], params["enc_final_norm_b"])
 
 
 def _whisper_decoder(cfg, params, x, ctx: LayerCtx, caches=None):
     """Decoder: per layer self-attention (its cache updated in place),
     then ungated cross-attention to ``ctx.encoder_out`` or, in decode, to
-    the layer's cross cache."""
-    for i in range(cfg.n_layers):
-        p = tree_map(lambda t: t[i], params["layers"])
-        cp = tree_map(lambda t: t[i], params["cross"])
+    the layer's cross cache; the pair runs under :func:`_remat` without
+    caches.  Returns ``(x, aux)``; the aux stays 0, as the reference's
+    (it drops its layers' aux)."""
+
+    def layer(p, cp, x):
+        x, _, _ = dense_layer(cfg, p, x, ctx, None)
+        x, _ = cross_attn_block(cfg, cp, x, ctx.encoder_out, ctx, None)
+        return x
+
+    step = _remat(cfg, layer)
+    pairs = zip(_unstack(params["layers"]), _unstack(params["cross"]))
+    for i, (p, cp) in enumerate(pairs):
         if caches is None:
-            x, _ = dense_layer(cfg, p, x, ctx, None)
-            x = cross_attn_block(cfg, cp, x, ctx.encoder_out, ctx, None)
+            x = step(p, cp, x)
         else:
             cache = tree_map(lambda t: t[i], caches["self"])
-            x, new_cache = dense_layer(cfg, p, x, ctx, cache)
+            x, new_cache, _ = dense_layer(cfg, p, x, ctx, cache)
             _write_back(cache, new_cache)
-            x = cross_attn_block(cfg, cp, x, ctx.encoder_out, ctx,
-                                 tree_map(lambda t: t[i], caches["cross"]))
-    return x
+            x, _ = cross_attn_block(cfg, cp, x, ctx.encoder_out, ctx,
+                                    tree_map(lambda t: t[i], caches["cross"]))
+    return x, 0.0
 
 
 def _decoder_forward(cfg, params, x, ctx: LayerCtx, caches=None):
-    """Run the decoder stack; returns the hidden states."""
+    """Run the decoder stack; returns ``(hidden, aux)``."""
     if cfg.family == "vlm":
         return _vlm_forward(cfg, params, x, ctx, caches)
     if cfg.family == "hybrid":
@@ -303,6 +382,26 @@ def stub_input(cfg: ArchConfig, t):
     return t.to(dt)
 
 
+def _forward_aux(cfg: ArchConfig, params, tokens: torch.Tensor, *,
+                 mode: str = "train", chunked: bool | None = None,
+                 vision=None, frames=None, caches=None, cache_index=None):
+    """:func:`hidden_forward` returning ``(hidden, aux)``, the layers'
+    summed aux beside the hidden states (the reference's
+    ``hidden_forward`` returns both); ``caches`` are updated in place."""
+    _check_family(cfg)
+    x = params["embed"][tokens].to(_dtype(cfg))
+    if chunked is None:
+        chunked = tokens.shape[1] > 2048
+    vision = stub_input(cfg, vision)
+    encoder_out = None
+    if cfg.kind == "encdec" and frames is not None:
+        encoder_out = _whisper_encoder(cfg, params, stub_input(cfg, frames))
+    ctx = LayerCtx(mode=mode, cache_index=cache_index,
+                   chunked=chunked and caches is None, causal=True, window=0,
+                   vision=vision, encoder_out=encoder_out)
+    return _decoder_forward(cfg, params, x, ctx, caches)
+
+
 def hidden_forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
                    mode: str = "train", chunked: bool | None = None,
                    vision=None, frames=None, caches=None, cache_index=None):
@@ -316,18 +415,10 @@ def hidden_forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
     cross layers (decode passes none: the cross caches hold their
     projections).  Both stubs are promoted to the model's dtype
     (:func:`stub_input`)."""
-    _check_family(cfg)
-    x = params["embed"][tokens].to(_dtype(cfg))
-    if chunked is None:
-        chunked = tokens.shape[1] > 2048
-    vision = stub_input(cfg, vision)
-    encoder_out = None
-    if cfg.kind == "encdec" and frames is not None:
-        encoder_out = _whisper_encoder(cfg, params, stub_input(cfg, frames))
-    ctx = LayerCtx(mode=mode, cache_index=cache_index,
-                   chunked=chunked and caches is None, causal=True, window=0,
-                   vision=vision, encoder_out=encoder_out)
-    return _decoder_forward(cfg, params, x, ctx, caches), caches
+    x, _ = _forward_aux(cfg, params, tokens, mode=mode, chunked=chunked,
+                        vision=vision, frames=frames, caches=caches,
+                        cache_index=cache_index)
+    return x, caches
 
 
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
@@ -339,3 +430,53 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
                                    frames=frames, caches=caches,
                                    cache_index=cache_index)
     return logits_fn(cfg, params, x), new_caches
+
+
+def _ce_sum(cfg, params, h, t) -> torch.Tensor:
+    """Sum over a chunk's positions of ``logsumexp(logits) - logit[label]``,
+    the logits ``(b, c, V)`` in float32."""
+    logits = logits_fn(cfg, params, h).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    label = torch.gather(logits, -1, t[..., None].long())[..., 0]
+    return torch.sum(lse - label)
+
+
+def chunked_ce(cfg, params, hidden, targets, *, chunk: int = 2048):
+    """Memory-safe cross-entropy: logits are never materialized whole.
+
+    The sequence splits into equal chunks of the largest ``c <= chunk``
+    that divides it (a uniform grid, no ragged tail, the reference's
+    choice); each chunk projects to ``(B, c, V)`` float32 logits, reduces
+    to logsumexp minus the label's logit, and is freed.  Under autograd
+    each chunk is checkpointed, so its logits are recomputed in the
+    backward instead of kept.  Returns the mean over ``B * S``."""
+    b, s, _ = hidden.shape
+    c = min(chunk, s)
+    while s % c:
+        c -= 1
+    step = _ce_sum
+    if _records(hidden, params):
+        step = functools.partial(checkpoint, _ce_sum, use_reentrant=False,
+                                 preserve_rng_state=False)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, c):
+        total = total + step(cfg, params, hidden[:, c0:c0 + c],
+                             targets[:, c0:c0 + c])
+    return total / (b * s)
+
+
+def lm_loss(cfg: ArchConfig, params, batch: dict, *,
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """Next-token cross-entropy (+ the MoE aux): ``batch["tokens"] (B,
+    S + 1)`` predicts each next token from the ones before it, with a
+    VLM's ``batch["vision"]`` and Whisper's ``batch["frames"]`` stubs.
+    MoE configs add ``aux_weight * aux / n_layers``, the layers' summed
+    load-balance loss.  A float32 scalar."""
+    tokens = batch["tokens"]
+    hidden, aux = _forward_aux(cfg, params, tokens[:, :-1],
+                               vision=batch.get("vision"),
+                               frames=batch.get("frames"))
+    loss = chunked_ce(cfg, params, hidden, tokens[:, 1:])
+    if cfg.n_experts:
+        loss = loss + aux_weight * aux / max(cfg.n_layers, 1)
+    return loss

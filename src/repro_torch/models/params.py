@@ -47,6 +47,13 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
+def tree_unflatten(like: Any, flat) -> Any:
+    """The tree of ``like``'s structure whose leaves are ``flat``, taken
+    in :func:`leaves` order."""
+    it = iter(flat)
+    return tree_map(lambda _: next(it), like)
+
+
 def _init_leaf(gen: torch.Generator, spec: P, dtype) -> torch.Tensor:
     kw = dict(dtype=dtype, device=gen.device)
     if spec.scale == "zero":

@@ -181,9 +181,9 @@ def test_dense_layer_matches_the_reference(pair):
         jctx = jB.LayerCtx(mode="prefill", chunked=chunked)
         want, _, _ = jax.jit(lambda p, x: jB.dense_layer(jcfg, p, x, jctx))(
             jp, jnp.asarray(x))
-        got, cache = B.dense_layer(cfg, p, torch.tensor(x),
-                                   B.LayerCtx(mode="prefill", chunked=chunked))
-        assert cache is None
+        got, cache, aux = B.dense_layer(
+            cfg, p, torch.tensor(x), B.LayerCtx(mode="prefill", chunked=chunked))
+        assert cache is None and aux == 0.0
         want = np.asarray(want)
         assert float(np.abs(got.numpy() - want).max()) <= 2e-5 * max(
             1.0, float(np.abs(want).max()))

@@ -288,8 +288,8 @@ def test_hybrid_layer_matches_the_reference(pair, part, chunked):
     want, _, _ = jax.jit(lambda p, x: jB.hybrid_layer(jcfg, p, x, jctx))(
         jp, jnp.asarray(x))
     ctx = B.LayerCtx(mode="prefill", chunked=chunked, window=window)
-    got, cache = B.hybrid_layer(cfg, p, torch.tensor(x), ctx)
-    assert cache is None
+    got, cache, aux = B.hybrid_layer(cfg, p, torch.tensor(x), ctx)
+    assert cache is None and aux == 0.0
     want = np.asarray(want)
     assert float(np.abs(got.numpy() - want).max()) <= 2e-5 * max(
         1.0, float(np.abs(want).max()))

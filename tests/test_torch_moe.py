@@ -354,11 +354,13 @@ def test_moe_layer_matches_the_reference(pair, chunked):
     want, _, aux = jax.jit(lambda p, x: jB.moe_layer(jcfg, p, x, jctx))(
         jp, jnp.asarray(x))
     assert float(aux) > 0
-    got, cache = B.moe_layer(cfg, p, torch.tensor(x),
-                             B.LayerCtx(mode="prefill", chunked=chunked))
+    got, cache, got_aux = B.moe_layer(
+        cfg, p, torch.tensor(x), B.LayerCtx(mode="prefill", chunked=chunked))
     assert cache is None
     err, tol = _layer_err(got, want)
     assert err <= tol
+    # the load-balance aux that the training loss reads
+    assert abs(float(got_aux) - float(aux)) <= 1e-5 * float(aux)
 
 
 # ---------------------------------------------------------------------------

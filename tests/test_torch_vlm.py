@@ -251,8 +251,9 @@ def test_cross_attn_block_matches_the_reference(sq, source, gated):
     jctx = jB.LayerCtx(mode="prefill")
     want, _ = jax.jit(lambda p, x, s, c: jB.cross_attn_block(
         jcfg, p, x, s, jctx, c))(jp, jnp.asarray(x), jnp.asarray(src), jcache)
-    got = B.cross_attn_block(cfg, p, torch.tensor(x), torch.tensor(src),
-                             B.LayerCtx(mode="prefill"), cache)
+    got, aux = B.cross_attn_block(cfg, p, torch.tensor(x), torch.tensor(src),
+                                  B.LayerCtx(mode="prefill"), cache)
+    assert aux == 0.0
     assert tuple(got.shape) == x.shape
     _assert_layer_close(got, want, (sq, source, gated))
     # the cross path is live: the block changes x
@@ -300,8 +301,8 @@ def test_cross_attn_block_with_a_long_source_matches_the_reference():
     jctx = jB.LayerCtx()
     want, _ = jax.jit(lambda p, x, s: jB.cross_attn_block(
         jcfg, p, x, s, jctx))(jp, jnp.asarray(x), jnp.asarray(src))
-    got = B.cross_attn_block(cfg, p, torch.tensor(x), torch.tensor(src),
-                             B.LayerCtx())
+    got, _ = B.cross_attn_block(cfg, p, torch.tensor(x), torch.tensor(src),
+                                B.LayerCtx())
     _assert_layer_close(got, want)
 
 
@@ -409,9 +410,9 @@ def test_dense_layer_of_a_group_matches_the_reference(pair):
         jctx = jB.LayerCtx(mode="prefill", chunked=chunked)
         want, _, _ = jax.jit(lambda p, x: jB.dense_layer(jcfg, p, x, jctx))(
             jp, jnp.asarray(x))
-        got, cache = B.dense_layer(cfg, p, torch.tensor(x),
-                                   B.LayerCtx(mode="prefill", chunked=chunked))
-        assert cache is None
+        got, cache, aux = B.dense_layer(
+            cfg, p, torch.tensor(x), B.LayerCtx(mode="prefill", chunked=chunked))
+        assert cache is None and aux == 0.0
         _assert_layer_close(got, want, f"chunked={chunked}")
 
 

@@ -300,9 +300,9 @@ def test_dense_layer_with_layernorm_and_gelu_matches_the_reference(
     jctx = jB.LayerCtx(mode="prefill", causal=causal)
     want, _, _ = jax.jit(lambda p, x: jB.dense_layer(jcfg, p, x, jctx))(
         jp, jnp.asarray(x))
-    got, cache = B.dense_layer(cfg, p, torch.tensor(x),
-                               B.LayerCtx(mode="prefill", causal=causal))
-    assert cache is None
+    got, cache, aux = B.dense_layer(cfg, p, torch.tensor(x),
+                                    B.LayerCtx(mode="prefill", causal=causal))
+    assert cache is None and aux == 0.0
     _assert_layer_close(got, want, (part, causal))
 
 
@@ -328,8 +328,9 @@ def test_cross_attn_block_matches_the_reference(pair, sq, source):
     jctx = jB.LayerCtx(mode="prefill")
     want, _ = jax.jit(lambda p, x, s, c: jB.cross_attn_block(
         jcfg, p, x, s, jctx, c))(jp, jnp.asarray(x), jnp.asarray(src), jcache)
-    got = B.cross_attn_block(cfg, p, torch.tensor(x), torch.tensor(src),
-                             B.LayerCtx(mode="prefill"), cache)
+    got, aux = B.cross_attn_block(cfg, p, torch.tensor(x), torch.tensor(src),
+                                  B.LayerCtx(mode="prefill"), cache)
+    assert aux == 0.0
     _assert_layer_close(got, want, (sq, source))
 
 
