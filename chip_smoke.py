@@ -274,9 +274,15 @@ PAPER_VGG_END = "detected 41.08%, undetermined about 2.2%"
 SOP_F1_BEFORE_MS = 15.838 / 64
 
 # published H100 SXM peaks (dense): HBM bytes/s, float32 outside the
-# tensor cores, bf16 and int8 on the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+# tensor cores, bf16 and int8 on the tensor cores; one source with the
+# port's roofline (chip_smoke.py alone has none, and main() refuses)
+if (ROOT / "src" / "repro_torch").is_dir():
+    sys.path.insert(0, str(ROOT / "src"))
+try:
+    from repro_torch.launch.roofline import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.launch.roofline import PEAK_FLOPS_BY_TYPE as PEAK_FLOPS
+except ImportError:
+    HBM_BYTES_PER_S = PEAK_FLOPS = None
 
 WARMUP, REPS = 2, 5
 # a device-side spin queued before each timed call, long enough (about 5 ms
@@ -2906,6 +2912,261 @@ class TrainPhase(Lm):
         )
 
 
+# ---- phase plan -----------------------------------------------------------
+
+# the dry run on the single production mesh (256 H100s as (data, model) =
+# (32, 8)): one architecture a family, each of its steps, and the
+# long_500k cells, the four of the quadratic families recorded as skipped.
+# Cut for the phase's 90 s (the card host's 8 cores trace about 750 s of
+# CPU for the one-a-family set): the VLM family's train_4k and prefill_32k,
+# the hybrid, MoE and audio families' train_4k (82, 80, about 80, 34 and
+# 55 s of CPU); the full matrix on both meshes runs through the CLI
+# (python -m repro_torch.launch.dryrun --mesh both --workers 8, 264 s).
+PLAN_ARCHS = {"ssm": "mamba2_780m", "hybrid": "hymba_1_5b",
+              "dense": "deepseek_7b", "moe": "qwen2_moe_a2_7b",
+              "vlm": "llama32_vision_11b", "audio": "whisper_large_v3"}
+PLAN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+PLAN_CUT = (("llama32_vision_11b", "train_4k"),
+            ("llama32_vision_11b", "prefill_32k"),
+            ("hymba_1_5b", "train_4k"), ("qwen2_moe_a2_7b", "train_4k"),
+            ("whisper_large_v3", "train_4k"))
+PLAN_SKIPPED = ("arctic_480b", "minicpm3_4b", "glm4_9b", "phi4_mini_3_8b")
+PLAN_BUDGET_S = 90.0
+# the dry run of the FLOP check: a bf16 Mamba-2 prefill of 4 x 4096
+PLAN_FLOP_TOKENS = (4, 4096)
+
+
+class PlanPhase:
+    """Phase plan: the port's dry run, roofline and gradient compression.
+
+    (a) the dry run of one cell per (family, step) on the single
+    production mesh (less :data:`PLAN_CUT`), traced in worker processes
+    (one a CPU core), every supported cell ``ok``; (b) the dry run on a
+    1 x 1 mesh of the shapes the earlier phases ran on the card, its
+    predicted bytes and roofline bound beside their measured peak memory
+    and time (the predicted total times ``dryrun.HBM_MARGIN`` at least the
+    peak), and ``FlopCounterMode`` around a real bf16 Mamba-2 prefill
+    against the dry run's FLOPs for it (equal); (c) ``compressed_mean``
+    over NCCL at world size 1 against ``_dequantize(_quantize(g))``.
+    Every check prints one ``plan {...}`` line; a failed check raises."""
+
+    def __init__(self, torch, device, *, lm, hybrid, moe, train):
+        self.torch, self.device = torch, device
+        self.measured = {
+            "mamba2_780m": (lm["prefill_32k_bf16"], "forward_ms"),
+            "hymba_1_5b": (hybrid["prefill_32k_bf16"], "forward_ms"),
+            "qwen2_moe_a2_7b": (moe["moe"]["qwen_prefill_32k"],
+                                "forward_ms"),
+            "mamba2_780m_train": (train["step_bf16"], "step_ms"),
+        }
+        self.summary = {}
+
+    def _print(self, key, row) -> None:
+        print("plan " + json.dumps(row), flush=True)
+        self.summary[key] = row
+
+    def compressed_mean(self) -> None:
+        """(c): the int8 all-reduce mean over a real NCCL group of one."""
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.optim.grad_compress import (
+            _dequantize,
+            _quantize,
+            compressed_mean,
+        )
+
+        torch = self.torch
+        mesh = make_host_mesh()
+        try:
+            gen = torch.Generator(device=self.device).manual_seed(23)
+            g = torch.randn((4097, 33), generator=gen, device=self.device,
+                            dtype=torch.float32)
+            got = compressed_mean(g)
+            q, scale = _quantize(g)
+            want = _dequantize(q, scale, g.shape)
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(got, want))
+            row = dict(check="compressed_mean nccl world 1",
+                       backend=dist.get_backend(), world=dist.get_world_size(),
+                       mesh=list(mesh.shape), numel=g.numel(), equal=equal)
+        finally:
+            dist.destroy_process_group()
+        self._print("compressed_mean", row)
+        if not equal:
+            raise AssertionError("compressed_mean at world size 1 is not"
+                                 " _dequantize(_quantize(g))")
+
+    def flop_count(self) -> int:
+        """``FlopCounterMode`` around a real bf16 Mamba-2 prefill of
+        :data:`PLAN_FLOP_TOKENS` on the card."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from repro_torch.configs import get_config
+        from repro_torch.launch.steps import make_prefill_step
+        from repro_torch.models import model as M
+
+        torch = self.torch
+        cfg = get_config("mamba2_780m")
+        params = M.init_params(cfg, 0, device=self.device)
+        gen = torch.Generator(device=self.device).manual_seed(4)
+        tokens = torch.randint(0, cfg.vocab, PLAN_FLOP_TOKENS, generator=gen,
+                               device=self.device)
+        prefill = make_prefill_step(cfg)
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as fc:
+            out = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError("flop-counted prefill: logits not finite")
+        del params, out
+        torch.cuda.empty_cache()
+        return int(fc.get_total_flops()), ms
+
+    def run(self) -> dict:
+        from repro_torch.configs.shapes import ShapeConfig
+        from repro_torch.launch import dryrun, roofline
+        from repro_torch.launch import mesh as MESH
+
+        torch = self.torch
+        t0 = time.perf_counter()
+        workers = max(1, os.cpu_count() or 1)
+        pool = dryrun._pool(workers)  # the workers boot during (c)
+        try:
+            self.compressed_mean()
+            card_flops, flop_ms = self.flop_count()
+        except BaseException:
+            pool.terminate()
+            raise
+        total_mem = torch.cuda.get_device_properties(0).total_memory
+        self._print("card", dict(total_memory=total_mem,
+                                 hbm_per_chip=roofline.HBM_PER_CHIP,
+                                 workers=workers))
+        # (a) the production mesh and (b) a 1 x 1 mesh at the shapes the
+        # earlier phases ran, their traces submitted together
+        cells_a = [(PLAN_ARCHS[f], s) for s in PLAN_SHAPES
+                   for f in PLAN_ARCHS if (PLAN_ARCHS[f], s) not in PLAN_CUT]
+        cells_a += [(a, "long_500k") for a in PLAN_SKIPPED]
+        cells_b = [
+            ("mamba2_780m", "prefill_32k",
+             ShapeConfig("prefill_32k", *LM_TIMED[::-1], "prefill"),
+             {"full_depth": True}),
+            ("hymba_1_5b", "prefill_32k",
+             ShapeConfig("prefill_32k", *HY_TIMED[::-1], "prefill")),
+            ("qwen2_moe_a2_7b", "prefill_32k",
+             ShapeConfig("prefill_32k", *MOE_TIMED[::-1], "prefill")),
+            ("mamba2_780m", "train_4k",
+             ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train"),
+             {"microbatches": TRAIN_MICRO}),
+            ("mamba2_780m", "prefill_32k",
+             ShapeConfig("prefill_32k", *PLAN_FLOP_TOKENS[::-1],
+                         "prefill"), {"full_depth": True}),
+        ]
+        name = MESH.mesh_name()
+        spec_a, spec_b = (MESH.SINGLE[1], MESH.SINGLE[2]), ((1, 1),
+                                                             ("data", "model"))
+        try:
+            started_a = dryrun.start_cells(cells_a, spec_a, pool)
+            started_b = dryrun.start_cells(cells_b, spec_b, pool)
+            recs_a = dryrun.finish_cells(started_a, MESH.fake_mesh(*spec_a),
+                                         name)
+            ta = time.perf_counter() - t0
+            recs = dryrun.finish_cells(started_b, MESH.fake_mesh(*spec_b),
+                                       "host_1x1")
+            tb = time.perf_counter() - t0
+        finally:
+            pool.terminate()
+            pool.join()
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        for rec in recs_a:
+            row = dict(cell=f"{rec['arch']} {rec['shape']}", mesh=name,
+                       status=rec["status"])
+            if rec["status"] == "ok":
+                r = roofline.analyze_record(rec)
+                row.update(
+                    gb_a_device=rec["memory"]["total_bytes"] / 1e9,
+                    fits=rec["fits_hbm"],
+                    flops_a_device=rec["hlo"]["flops_per_device"],
+                    collective_gb=(rec["hlo"]["collective_bytes_per_device"]
+                                   / 1e9),
+                    dominant=r.dominant, roofline_frac=r.roofline_frac,
+                    compute_s=r.compute_s, memory_s=r.memory_s,
+                    collective_s=r.collective_s,
+                    microbatches=rec["microbatches"],
+                    probes=rec["probes"], nodes=rec["nodes"],
+                    trace_cpu_s=rec["t_trace_s"])
+            else:
+                row["reason"] = rec.get("reason") or rec.get("error")
+            self._print(f"a {rec['arch']} {rec['shape']}", row)
+        self._print("cut", dict(cells_cut=[" ".join(c) for c in PLAN_CUT],
+                                why="the phase's 90 s; the CLI runs them"))
+        bad = [r for r in recs_a if r["status"] == "error"]
+        if bad:
+            raise AssertionError(f"dry run: {len(bad)} cells failed:"
+                                 f" {[(r['arch'], r['shape']) for r in bad]}"
+                                 f" {bad[0]['error']}")
+        for rec in recs:
+            if rec["status"] != "ok":
+                raise AssertionError(f"dry run 1x1 {rec['arch']}"
+                                     f" {rec['shape']}: {rec.get('error')}")
+        flop_rec = recs.pop()
+        dry_flops = flop_rec["hlo"]["flops_per_device"]
+        row = dict(check="FlopCounterMode vs the 1x1 dry run",
+                   cell=f"mamba2_780m prefill bf16 {PLAN_FLOP_TOKENS[0]}x"
+                        f"{PLAN_FLOP_TOKENS[1]}",
+                   card_flops=card_flops, dry_run_flops=dry_flops,
+                   equal=card_flops == dry_flops, counted_prefill_ms=flop_ms)
+        self._print("flops", row)
+        if card_flops != dry_flops:
+            raise AssertionError(f"FlopCounterMode counted {card_flops}, the"
+                                 f" dry run {dry_flops}")
+        uncovered = []
+        for rec in recs:
+            key = rec["arch"] + ("_train" if rec["step"] == "train" else "")
+            measured, ms_key = self.measured[key]
+            r = roofline.analyze_record(rec)
+            mem = rec["memory"]
+            # fits_hbm's margin must cover the peak the card measured
+            covered = (mem["total_bytes"] * rec["hbm_margin"] / 1e9
+                       >= measured["peak_gb"])
+            if not covered:
+                uncovered.append(key)
+            self._print(f"b {key}", dict(
+                cell=(f"{rec['arch']} {rec['step']} bf16 "
+                      f"{rec['global_batch']}x{rec['seq_len']}"),
+                mesh="1x1", depth=rec["depth"],
+                predicted_argument_gb=mem["argument_bytes"] / 1e9,
+                predicted_total_gb=mem["total_bytes"] / 1e9,
+                measured_peak_gb=measured["peak_gb"],
+                measured_over_predicted=(measured["peak_gb"] * 1e9
+                                         / mem["total_bytes"]),
+                hbm_margin=rec["hbm_margin"], margin_covers=covered,
+                bound_ms=r.bound() * 1e3, bound_by=r.dominant,
+                compute_ms=r.compute_s * 1e3, memory_ms=r.memory_s * 1e3,
+                measured_ms=measured[ms_key],
+                flops=rec["hlo"]["flops_per_device"],
+                trace_cpu_s=rec["t_trace_s"]))
+        if uncovered:
+            raise AssertionError(f"dry run 1x1: the measured peak of"
+                                 f" {uncovered} is over the predicted total"
+                                 " times dryrun.HBM_MARGIN")
+        seconds = time.perf_counter() - t0
+        self._print("time", dict(
+            phase="plan", seconds=seconds, dry_run_a_s=ta, dry_run_b_s=tb,
+            workers=workers, total_memory=total_mem,
+            hbm_per_chip=roofline.HBM_PER_CHIP,
+            total_memory_equal=total_mem == roofline.HBM_PER_CHIP))
+        print(f"phase plan: {seconds:.1f} s", flush=True)
+        if seconds > PLAN_BUDGET_S:
+            raise AssertionError(f"phase plan took {seconds:.1f} s, over its"
+                                 f" {PLAN_BUDGET_S:.0f} s")
+        return self.summary
+
+
 # ---- phase ops ------------------------------------------------------------
 
 # the phase 3 forwards the ops phase runs traced and guarded; the faults
@@ -3875,6 +4136,8 @@ def main(argv=None) -> int:
         train = TrainPhase(torch, device)
         ssd_train = train.run()
         torch.cuda.empty_cache()
+        plan = PlanPhase(torch, device, lm=lm.summary, hybrid=hybrid.summary,
+                         moe=moe, train=train.summary).run()
         with tempfile.TemporaryDirectory() as tmp:
             ops = Ops(smoke, Path(tmp) if args.out is None
                       else args.out.parent).run()
@@ -3910,6 +4173,7 @@ def main(argv=None) -> int:
                 moe=moe,
                 vlm=vlm,
                 train=train.summary,
+                plan=plan,
                 ops=ops,
                 serve=serve,
                 seconds=time.perf_counter() - t0,

@@ -16,7 +16,10 @@ kept beside it with the same layout and names:
   :mod:`repro_torch.launch` — the language models, their serving and
   training entry points, with :mod:`repro_torch.optim`,
   :mod:`repro_torch.data`, :mod:`repro_torch.checkpoint` and
-  :mod:`repro_torch.runtime` for training;
+  :mod:`repro_torch.runtime` for training, and the dry run, roofline and
+  hill-climb for H100 clusters;
+* :mod:`repro_torch.parallel` — logical-axis sharding rules on DTensor
+  and the model's sharding constraints;
 * :mod:`repro_torch.interop` — carries the reference's numpy params across.
 
 The package imports ``torch`` and numpy, never ``jax`` and never anything

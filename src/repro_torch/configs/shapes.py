@@ -1,13 +1,14 @@
 """The reference's assigned input shapes (seq_len x global_batch).
 
-The port of ``SHAPES`` from ``repro.configs.shapes``; the cell matrix and
-its support rules stay with the reference's dry-run, which the port does
-not have.
+The port of ``SHAPES``, ``cell_supported`` and ``cells`` from
+``repro.configs.shapes``: the dry run's cell matrix.
 
 * ``train_4k``    — 4,096 x 256, a training step
 * ``prefill_32k`` — 32,768 x 32, the prefill forward (causal)
 * ``decode_32k``  — one new token against a 32,768 cache, batch 128
-* ``long_500k``   — one new token against a 524,288 cache, batch 1
+* ``long_500k``   — one new token against a 524,288 cache, batch 1; it
+  needs sub-quadratic attention, so only the SSM and hybrid families run
+  it, and the other cells are recorded as skipped
 """
 
 from __future__ import annotations
@@ -29,3 +30,13 @@ SHAPES: dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
+
+
+def cell_supported(cfg, shape: ShapeConfig) -> tuple[bool, str]:
+    """(supported, reason-if-not) for one (arch x shape) cell."""
+    if shape.name == "long_500k" and cfg.family not in ("ssm", "hybrid"):
+        return False, (
+            "long_500k requires sub-quadratic attention; "
+            f"{cfg.name} is pure full-attention (assignment: skip + record)"
+        )
+    return True, ""

@@ -15,8 +15,13 @@ the bf16 ``y``, take two parts (16 significant bits); the state update's
 weighted x, which reaches the float32 state, takes three (float32's 24),
 so that the float32 contract of :func:`plain_tol` holds even where the
 state's terms cancel.  With float32 inputs the kernel runs float32 FMAs.
-:data:`SSD_SCAN` carries a plain integer ``launches`` count that the
-wrapper bumps where it launches the kernel, and nowhere else;
+The launch runs inside the custom op ``repro_torch::ssd_scan``, whose fake
+implementation gives a tracer the output shapes without a launch, whose
+FLOP formula counts the plain chunked SSD's dots
+(:func:`ssd_scan_flops`), and whose DTensor sharding rule
+(:func:`register_sharding_rule`) runs it per shard of the sequences and
+heads.  :data:`SSD_SCAN` carries a plain integer ``launches`` count that
+the wrapper bumps where it launches the kernel, and nowhere else;
 :func:`resident_blocks` asks how many blocks an SM holds at once.  The
 source file's header says what the kernel computes, what bounds it on the
 H100 and how its design answers that.
@@ -100,9 +105,20 @@ def ssd_scan_kernel(x, dt, A, B, C, D, *, chunk: int = 64
     ``S`` must be a multiple of ``chunk``.  ``y`` is ``(b,S,H,P)`` in x's
     type and ``state`` the final ``(b,H,P,N)`` float32 state.  A tensor on
     the CPU runs :func:`ssd_scan_plain`; a CUDA tensor launches the CUDA
-    kernel or raises.
+    kernel or raises.  The call goes through the custom op
+    ``repro_torch::ssd_scan`` (:func:`_ssd_scan_op`), so a tracer sees one
+    node and fake or meta tensors take its shape function.
     """
     x, dt, A, B, C, D = prepare(x, dt, A, B, C, D, chunk)
+    return torch.ops.repro_torch.ssd_scan(x, dt, A, B, C, D, chunk)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def _ssd_scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                 chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The op's real implementation, on arguments through :func:`prepare`:
+    the plain version on the CPU, the launch on CUDA."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
     if x.device.type != "cuda":
@@ -118,6 +134,71 @@ def ssd_scan_kernel(x, dt, A, B, C, D, *, chunk: int = 64
         launch(x, dt, A, B, C, D, y, state, chunk,
                stream=torch.cuda.current_stream(x.device).cuda_stream)
     return y, state
+
+
+@_ssd_scan_op.register_fake
+def _(x, dt, A, B, C, D, chunk):
+    b, S, H, P = x.shape
+    return (torch.empty_like(x),
+            x.new_empty((b, H, P, B.shape[-1]), dtype=torch.float32))
+
+
+def ssd_scan_flops(x_shape, B_shape, chunk: int) -> int:
+    """The dot FLOPs of the plain chunked SSD (``models.ssm.ssd_chunked``)
+    at ``chunk`` over ``x (b,S,H,P)`` and ``B (b,S,N)``: per chunk of ``Q``
+    positions the scores ``C B^T`` (``2bQQN``), the diagonal block against
+    ``x`` (``2bHQQP``), the carried state's part of ``y`` (``2bQHPN``) and
+    the state update (``2bHPNQ``)."""
+    b, S, H, P = x_shape
+    N = B_shape[-1]
+    Q = chunk
+    return 2 * b * S * (Q * N + H * Q * P + 2 * H * P * N)
+
+
+def _register_flop_formula() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.ssd_scan)
+    def _flops(x_shape, dt_shape, A_shape, B_shape, C_shape, D_shape, chunk,
+               *args, out_shape=None, **kwargs) -> int:
+        return ssd_scan_flops(x_shape, B_shape, chunk)
+
+
+_register_flop_formula()
+
+
+_SHARDING_REGISTERED = False
+
+
+def register_sharding_rule() -> None:
+    """Register the op's DTensor sharding rule (once): its outputs follow
+    inputs sharded over the sequences (``x``, ``dt``, ``B``, ``C`` and
+    both outputs on dim 0), over the heads when every mesh dim divides
+    them (``x``, ``dt`` on dim 2, ``A``, ``D`` on dim 0, ``y`` on dim 2,
+    ``state`` on dim 1), both on two mesh dims, or all replicated.
+    Imports ``torch.distributed.tensor`` only when called."""
+    global _SHARDING_REGISTERED
+    if _SHARDING_REGISTERED:
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.ssd_scan.default)
+    def _rule(x, dt, A, B, C, D, chunk):
+        R = Replicate()
+        rules = [
+            ([R, R], [R, R, R, R, R, R, None]),
+            ([Shard(0), Shard(0)],
+             [Shard(0), Shard(0), R, Shard(0), Shard(0), R, None]),
+        ]
+        mesh = x.mesh
+        if all(x.shape[2] % mesh.size(m) == 0 for m in range(mesh.ndim)):
+            rules.append(([Shard(2), Shard(1)],
+                          [Shard(2), Shard(2), Shard(0), R, R, Shard(0),
+                           None]))
+        return rules
+
+    _SHARDING_REGISTERED = True
 
 
 def resident_blocks(P: int, N: int, chunk: int, dtype: torch.dtype,

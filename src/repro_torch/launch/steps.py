@@ -1,9 +1,10 @@
 """Step builders for the train, prefill and decode cells.
 
-The port of ``make_optimizer``, ``make_train_step``, ``make_prefill_step``
-and ``make_decode_step`` from the reference's ``repro.launch.steps``.  The
-steps are plain functions (PyTorch runs eagerly; nothing is traced).  The
-dry run's abstract inputs (``input_specs``) wait for the port's dry run.
+The port of the reference's ``repro.launch.steps``: ``make_optimizer``,
+``make_train_step``, ``make_prefill_step`` and ``make_decode_step`` return
+plain functions (PyTorch runs them eagerly; the dry run traces them), and
+:func:`input_specs` returns ``device="meta"`` stand-ins of every model
+input of a cell (nothing allocated).
 """
 
 from __future__ import annotations
@@ -11,11 +12,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.models import model as M
 from repro_torch.models import serving as S
 from repro_torch.models.params import leaves, tree_map, tree_unflatten
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.parallel.constraints import split_rows
 
 MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -37,13 +40,13 @@ def _value_and_grad(cfg, params, batch):
 
 
 def _split(name, t, microbatches):
-    """``t`` as ``(microbatches, B / microbatches, ...)``; a batch that
+    """``t`` as ``(microbatches, B / microbatches, ...)``
+    (:func:`~repro_torch.parallel.constraints.split_rows`); a batch that
     does not divide evenly is refused, as the reference's reshape does."""
     if t.shape[0] % microbatches:
         raise ValueError(f"batch[{name!r}] has {t.shape[0]} rows, which "
                          f"do not split into {microbatches} microbatches")
-    return t.reshape((microbatches, t.shape[0] // microbatches)
-                     + tuple(t.shape[1:]))
+    return split_rows(t, microbatches)
 
 
 def make_train_step(cfg: ArchConfig, *, microbatches: int = 1,
@@ -69,7 +72,7 @@ def make_train_step(cfg: ArchConfig, *, microbatches: int = 1,
                 grads = [g.to(grad_dtype) for g in grads]
         else:
             loss = 0.0
-            grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+            grads = [torch.zeros_like(p, dtype=accum_dtype)
                      for p in leaves(params)]
             parts = {k: _split(k, v, microbatches) for k, v in batch.items()}
             for i in range(microbatches):
@@ -111,3 +114,34 @@ def make_decode_step(cfg: ArchConfig):
         return S.decode_step(cfg, params, tokens, caches, cache_index)
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """``device="meta"`` stand-ins for every model input of this cell.
+
+    Modality frontends are stubs, as in the reference: a VLM gets
+    precomputed patch embeddings, Whisper precomputed frame embeddings.
+    Tokens are int32, as the reference's."""
+    B, Sq = shape.global_batch, shape.seq_len
+    dt = M._dtype(cfg)
+    if shape.step in ("train", "prefill"):
+        n = Sq + 1 if shape.step == "train" else Sq
+        specs = {"tokens": _meta((B, n), torch.int32)}
+        if cfg.family == "vlm":
+            specs["vision"] = _meta((B, cfg.vis_seq, cfg.d_model), dt)
+        if cfg.kind == "encdec":
+            specs["frames"] = _meta((B, cfg.enc_seq, cfg.d_model), dt)
+        return specs
+    # decode: one new token against a seq_len cache
+    return {"tokens": _meta((B, 1), torch.int32),
+            "caches": S.abstract_caches(cfg, B, Sq),
+            "cache_index": _meta((), torch.int32)}

@@ -7,8 +7,10 @@
 The port of the reference's ``repro.launch.train`` on one device (the card
 unless ``--device`` says otherwise): the deterministic data pipeline,
 AdamW, checkpoint/restart and the straggler detector's hooks, on the
-reduced config unless ``--full``.  The reference's mesh and sharding have
-no counterpart on one device.
+reduced config unless ``--full``.  One process drives one device, so no
+mesh is registered and the model's sharding constraints are the identity;
+the sharded steps of a production mesh are planned by the dry run
+(:mod:`repro_torch.launch.dryrun`).
 """
 
 from __future__ import annotations

@@ -18,6 +18,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.parallel.spmd import per_head
+
 from .layers import (
     chunked_attention,
     dense_attention,
@@ -211,10 +213,10 @@ def cross_attn_block(cfg, p, x, kv_src, ctx: LayerCtx, kv_cache=None):
     sq, skv = q.shape[1], k.shape[1]
     if sq > 2048:
         qc, kc = _cross_chunks(sq, skv)
-        out = chunked_attention(q, k, v, causal=False, q_chunk=qc,
-                                kv_chunk=kc)
+        out = per_head(chunked_attention, q, k, v, causal=False,
+                       q_chunk=qc, kv_chunk=kc)
     else:
-        out = dense_attention(q, k, v, causal=False)
+        out = per_head(dense_attention, q, k, v, causal=False)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if "gate" in p:
         y = torch.tanh(p["gate"]) * y

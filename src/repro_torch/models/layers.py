@@ -27,6 +27,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.spmd import per_head
+
 # finite, so that exp(m - m_new) stays finite (0) when a visited block masks
 # a whole row of the online softmax; -inf would make it NaN
 NEG_INF = -1e30
@@ -301,12 +303,11 @@ def gqa_attention(
     else:
         new_cache = None
         if chunked:
-            out = chunked_attention(
-                q, k, v, causal=causal, window=window,
-                q_chunk=q_chunk, kv_chunk=kv_chunk,
-            )
+            out = per_head(chunked_attention, q, k, v, causal=causal,
+                           window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
         else:
-            out = dense_attention(q, k, v, causal=causal, window=window)
+            out = per_head(dense_attention, q, k, v, causal=causal,
+                           window=window)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, new_cache
 
@@ -386,9 +387,9 @@ def mla_attention(
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, vfull)
     elif chunked:
-        out = chunked_attention(qf, k, vfull, causal=True, q_chunk=q_chunk,
-                                kv_chunk=kv_chunk)
+        out = per_head(chunked_attention, qf, k, vfull, causal=True,
+                       q_chunk=q_chunk, kv_chunk=kv_chunk)
     else:
-        out = dense_attention(qf, k, vfull, causal=True)
+        out = per_head(dense_attention, qf, k, vfull, causal=True)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, new_cache

@@ -12,8 +12,10 @@ encoder-decoder ``audio`` family (Whisper: a non-causal encoder over the
 frame stub, then decoder layers of self- and cross-attention), with
 RMSNorm or LayerNorm, SwiGLU or GELU, and an untied or tied head.  The
 reference's ``lax.scan`` over a stack of ``(L, ...)`` params is a Python
-loop over the leading dimension; its sharding constraints (the identity on
-one device) are gone.  :func:`forward` and :func:`hidden_forward` return
+loop over the leading dimension.  Its three sharding constraints stay
+(:func:`repro_torch.parallel.constraints.constrain`: the residual stream
+at each layer, the loss's hidden states and logits); they are the
+identity unless a mesh is registered and the tensors are DTensors.  :func:`forward` and :func:`hidden_forward` return
 ``(out, caches)`` where the reference returns ``(out, aux, caches)``: the
 layers' summed aux loss reaches :func:`lm_loss` through the helper they
 share (:func:`_forward_aux`).  Caches are updated in place.
@@ -34,6 +36,7 @@ import functools
 from dataclasses import replace
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -42,6 +45,8 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import resolve_device
+from repro_torch.parallel.constraints import constrain
+from repro_torch.parallel.spmd import take_rows
 
 from . import params as prm
 from .blocks import (
@@ -174,6 +179,16 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
     return prm.init_tree(build_param_specs(cfg), gen, _dtype(cfg))
 
 
+def abstract_params(cfg: ArchConfig) -> dict:
+    """``cfg``'s params as ``device="meta"`` tensors (nothing allocated)."""
+    return prm.abstract_tree(build_param_specs(cfg), _dtype(cfg))
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of every param leaf (same structure)."""
+    return prm.axes_tree(build_param_specs(cfg))
+
+
 def _dtype(cfg: ArchConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
@@ -250,6 +265,9 @@ def _stack(cfg, body, x, stacked_params, ctx: LayerCtx, caches=None):
     aux = 0.0
     step = _remat(cfg, lambda p, x: body(cfg, p, x, ctx, None))
     for i, p in enumerate(_unstack(stacked_params)):
+        # pin the residual stream's sharding per layer; "seq" maps to ()
+        # by default and to ("model",) under sequence parallelism
+        x = constrain(x, "batch", "seq", None)
         if caches is None:
             x, _, a = step(p, x)
         else:
@@ -329,6 +347,7 @@ def _whisper_decoder(cfg, params, x, ctx: LayerCtx, caches=None):
     step = _remat(cfg, layer)
     pairs = zip(_unstack(params["layers"]), _unstack(params["cross"]))
     for i, (p, cp) in enumerate(pairs):
+        x = constrain(x, "batch", "seq", None)  # pin residual sharding
         if caches is None:
             x = step(p, cp, x)
         else:
@@ -389,7 +408,7 @@ def _forward_aux(cfg: ArchConfig, params, tokens: torch.Tensor, *,
     summed aux beside the hidden states (the reference's
     ``hidden_forward`` returns both); ``caches`` are updated in place."""
     _check_family(cfg)
-    x = params["embed"][tokens].to(_dtype(cfg))
+    x = take_rows(params["embed"], tokens).to(_dtype(cfg))
     if chunked is None:
         chunked = tokens.shape[1] > 2048
     vision = stub_input(cfg, vision)
@@ -434,10 +453,18 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
 
 def _ce_sum(cfg, params, h, t) -> torch.Tensor:
     """Sum over a chunk's positions of ``logsumexp(logits) - logit[label]``,
-    the logits ``(b, c, V)`` in float32."""
-    logits = logits_fn(cfg, params, h).to(torch.float32)
+    the logits ``(b, c, V)`` in float32, kept batch- and vocab-sharded
+    under a mesh."""
+    h = constrain(h, "batch", None, None)
+    logits = constrain(logits_fn(cfg, params, h).to(torch.float32),
+                       "batch", None, "vocab")
     lse = torch.logsumexp(logits, dim=-1)
-    label = torch.gather(logits, -1, t[..., None].long())[..., 0]
+    if type(logits).__name__ == "DTensor":
+        # the reference's one-hot contraction: stays vocab-sharded
+        label = torch.sum(logits * F.one_hot(
+            t.long(), logits.shape[-1]).to(torch.float32), dim=-1)
+    else:
+        label = torch.gather(logits, -1, t[..., None].long())[..., 0]
     return torch.sum(lse - label)
 
 

@@ -1,12 +1,15 @@
 """Parameter specs: one source of truth for shapes and init scales.
 
-The port of the reference's ``repro.models.params``, cut to what its model
-families need (its abstract and sharding trees are not ported).  Every leaf is
-declared as ``P(shape, axes, scale)``; the tree drives real initialization
-(truncated normal with fan-in scaling, from an explicit
-``torch.Generator``).  The logical
-``axes`` are kept for parity with the reference's specs; one GPU resolves
-none of them.
+The port of the reference's ``repro.models.params``.  Every leaf is
+declared as ``P(shape, axes, scale)``; the same tree drives
+
+* real initialization (truncated normal with fan-in scaling, from an
+  explicit ``torch.Generator``);
+* abstract initialization (the dry run): ``device="meta"`` tensors,
+  nothing allocated (:func:`abstract_tree`);
+* sharding: the ``axes`` tuple of logical names is resolved against a mesh
+  by :mod:`repro_torch.parallel.sharding` (:func:`axes_tree`); on one GPU
+  nothing is sharded.
 
 Trees are nested dicts; :func:`leaves` and :func:`tree_map` walk them in
 sorted-key order, the order ``jax.tree`` flattens a dict in.
@@ -75,6 +78,18 @@ def init_tree(specs: Any, gen: torch.Generator, dtype=torch.bfloat16):
     """Materialize a spec tree into real parameters on ``gen``'s device,
     drawing the leaves from ``gen`` in sorted-key order."""
     return tree_map(lambda s: _init_leaf(gen, s, dtype), specs)
+
+
+def abstract_tree(specs: Any, dtype=torch.bfloat16):
+    """Spec tree -> ``device="meta"`` tensors of the same shapes in
+    ``dtype`` (no allocation; the dry run)."""
+    return tree_map(
+        lambda s: torch.empty(s.shape, dtype=dtype, device="meta"), specs)
+
+
+def axes_tree(specs: Any):
+    """Spec tree -> logical-axes tree (same structure)."""
+    return tree_map(lambda s: s.axes, specs)
 
 
 def stack_specs(specs: Any, n: int, axis_name: str = "layers"):

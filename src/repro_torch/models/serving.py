@@ -39,6 +39,7 @@ from .model import (
     forward,
     stub_input,
 )
+from . import params as prm
 from .params import P, tree_map
 
 
@@ -122,6 +123,17 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int, *, device=None):
         lambda p: torch.zeros(p.shape, dtype=_dtype(cfg), device=dev),
         build_cache_specs(cfg, batch, max_seq),
     )
+
+
+def abstract_caches(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
+    """The caches as ``device="meta"`` tensors (nothing allocated)."""
+    return prm.abstract_tree(build_cache_specs(cfg, batch, max_seq),
+                             _dtype(cfg))
+
+
+def cache_axes(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
+    """The logical axes of every cache leaf (same structure)."""
+    return prm.axes_tree(build_cache_specs(cfg, batch, max_seq))
 
 
 def hybrid_split_caches(cfg, caches):

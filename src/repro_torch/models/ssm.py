@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.parallel.spmd import shard_local
 
 
 def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
@@ -96,7 +97,7 @@ def ssd_decode_step(state, x, dt, A, B, C, D):
     return y + x * D[None, :, None], new_state
 
 
-def causal_conv1d(x, w, *, state=None):
+def causal_conv1d(x, w, state=None):
     """Depthwise causal conv over (b, S, C) with kernel (K, C).
 
     ``state``: (b, K-1, C) rolling buffer for decode.  Returns (y, new_state).
@@ -135,7 +136,10 @@ def mamba2_mixer(
     z, xbc, dt = torch.split(
         zxbcdt, [d_inner, d_inner + 2 * state_dim, n_heads], dim=-1)
     conv_state = None if ssm_cache is None else ssm_cache["conv"]
-    xbc, new_conv = causal_conv1d(xbc, p["conv_w"], state=conv_state)
+    # depthwise along the channels: run per shard of the batch and channels
+    xbc, new_conv = shard_local(causal_conv1d, (xbc, p["conv_w"],
+                                                conv_state),
+                                ("b.c", ".c", "b.c"), ("b.c", "b.c"))
     xbc = F.silu(xbc)  # mamba2: silu AFTER the causal conv
     xs, B, C = torch.split(xbc, [d_inner, state_dim, state_dim], dim=-1)
     xs = xs.reshape(b, S, n_heads, head_dim)

@@ -4,9 +4,9 @@ The port of the reference's ``repro.optim.grad_compress``: gradients are
 quantized to int8 with one absmax scale per block of :data:`BLOCK` values
 before the data-parallel reduction, and the quantization residual is
 carried in a bfloat16 error-feedback buffer and added back the next step.
-Rounding is half to even, as ``jnp.round``'s.  The reference's
-``compressed_mean``, an int8 all-reduce inside ``shard_map``, waits for the
-port's ``parallel/``.
+Rounding is half to even, as ``jnp.round``'s.  :func:`compressed_mean`,
+the reference's int8 all-reduce inside ``shard_map``, is a
+``torch.distributed`` all-reduce over a process group.
 """
 
 from __future__ import annotations
@@ -64,3 +64,19 @@ def compress_grads(grads, state: CompressState):
     out = [one(g, e) for g, e in zip(leaves(grads), leaves(state.error))]
     deq, err = (tree_unflatten(grads, part) for part in zip(*out))
     return deq, CompressState(error=err)
+
+
+def compressed_mean(g: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of ``g`` over the ranks of ``group`` (``None``: the default
+    group), reduced from int8 blocks: each rank quantizes ``g`` in float32,
+    the blocks times their scales (float32, as the reference's int32 times
+    float32 scale) are summed by ``all_reduce``, divided by the group's
+    size, cut to ``g``'s elements and cast back to ``g``'s type."""
+    import torch.distributed as dist
+
+    q, scale = _quantize(g.to(torch.float32))
+    total = q.to(torch.int32) * scale
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    n = float(dist.get_world_size(group))
+    flat = (total / n).reshape(-1)[:g.numel()]
+    return flat.reshape(g.shape).to(g.dtype)
