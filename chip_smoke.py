@@ -41,13 +41,30 @@ a plain backward.  Phases, any failure exits non-zero:
    tile and the TFLOP/s its bare time makes of the bound's FLOPs.
 3. end to end — ``run_network`` at full width (224x224 input, 1000
    classes) for ResNet-18 f32 batch 1 and 8, ResNet-18 bf16 batch 8 and
-   VGG-16 f32 batch 1, each held against the port's ``reference_network``
-   on the card (f32 within ``_tol``, bf16 within ``bf16_logit_tol``), with
-   every kernel's launch count reset just before each forward and checked
-   just after against that forward's plan.  That first forward of each
-   runs eagerly and is captured into a CUDA graph (the compiled forward,
+   VGG-16 f32 batch 1, planned under the reference's TPU budget
+   (``REFERENCE_BUDGET``, passed explicitly: kernel B's only route), each
+   held against the port's ``reference_network`` on the card (f32 within
+   ``_tol``, bf16 within ``bf16_logit_tol``), with every kernel's launch
+   count reset just before each forward and checked just after against
+   that forward's plan.  That first forward of each runs eagerly and is
+   captured into a CUDA graph (the compiled forward,
    ``repro_torch.net.runner``); the timed forwards replay it, and the
-   forward issued launch by launch is timed beside them.
+   forward issued launch by launch is timed beside them.  Then the same
+   four cells and VGG-16 f32 batch 8 planned under the card's budget (the
+   default, ``CARD_BUDGET``, the L2): every pyramid against its plain
+   version, timed and bounded as in phase 2 (its rows carry the run's
+   ``@card`` key), every forward counted and checked the same way, a
+   ``card launch`` line per launch (Q, alpha, cells, card bytes, modeled
+   HBM bytes) and an ``end to end card`` line per cell with its replayed
+   and eager ms beside the reference-setting plan's and the plan's at
+   twice the card's budget; then the fusion sweep (``sweep`` lines):
+   kernel A on ResNet-18's first block fused against its two one-conv
+   launches, per image, at batches whose fused launch holds 0.25x to 2x
+   the L2, and the ``sweep knee`` line: the share before fusion first
+   lost, the shares where it paid past that, and the check that fails the
+   run unless the card's budget is at most the card's L2 and fusion pays
+   on the whole (geometric mean of fused over layerwise below 1) at the
+   shares within it; ``phase card: N s``.
 4. sop — the windows of VGG-16 ``CONV1`` (of the VGG image above) and
    ``CONV2`` (of ``relu(CONV1)``) at 224², P = 50,176 each, scaled by one
    power of two into (-1, 1), through ``online_sop_end`` once per layer
@@ -172,8 +189,9 @@ a plain backward.  Phases, any failure exits non-zero:
    leaf's gradient finite and non-zero, 8 launches a step); and
    ``python -m repro_torch.launch.train --arch deepseek_7b --steps 3`` as a
    subprocess.
-10. ops — phase 3's ResNet-18 f32 and VGG-16 f32 batch-1 forwards observed
-   and guarded (``repro_torch.obs``, ``repro_torch.robust``): each traced
+10. ops — phase 3's ResNet-18 f32 and VGG-16 f32 batch-1 forwards (their
+   reference-budget plans; ``explain`` runs with ``--budget reference``)
+   observed and guarded (``repro_torch.obs``, ``repro_torch.robust``): each traced
    three times (per forward a span per launch with a positive CUDA-event
    time on this card, logits and skip maps as the untraced forward's, the
    run_network and end_skip_counts events), all in one Chrome trace that
@@ -199,7 +217,8 @@ a plain backward.  Phases, any failure exits non-zero:
    line of their own.
 11. serve — ResNet-18 at full width (224x224x3, 1000 classes, phase 3's
    params) through the serving engine (``repro_torch.net.serve``,
-   ``ServeConfig(buckets=(1, 2, 4, 8))``, f32): two waves of the same
+   ``ServeConfig(buckets=(1, 2, 4, 8), budget=REFERENCE_BUDGET)``, f32;
+   the serve CLI with ``--budget reference``): two waves of the same
    seeded stream of 24 requests of 1-3 images, every request's logits
    against ``reference_network`` on its own rows (``_tol``), wave 1
    capturing one CUDA graph a bucket and wave 2 none (no plan, partition
@@ -220,9 +239,12 @@ a plain backward.  Phases, any failure exits non-zero:
    --breaker 1 --watchdog 3``.  Its launches go on a ``serve launches``
    line of their own.
 12. results — one ``{"kernels": [...]}`` line (for the pyramid kernels
-   ``launches`` sums the four forwards, ``launches_per_forward`` splits
-   it, and every time sums the per-launch medians over the dense pyramids
-   of the four plans; for the SOP kernel ``launches_per_layer`` splits
+   ``launches`` sums phase 3's nine forwards, the four under the
+   reference's budget and the five under the card's,
+   ``launches_per_forward`` splits it (``@card`` keys), and every time sums
+   the per-launch medians over the dense pyramids of the four
+   reference-budget plans, while kernel A's ``card`` sums the same times
+   over the five card plans' pyramids; for the SOP kernel ``launches_per_layer`` splits
    the 2 and every time sums the two layers: the median of a layer's
    launch, or the sum of its 64 plain calls' single timed spans; for the
    SSD kernel ``launches`` is the bf16 prefill's 48 and every time covers
@@ -240,6 +262,7 @@ nothing of JAX and nothing of the reference package ``repro``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -260,6 +283,25 @@ CONFIGS = (
     ("resnet18", "bfloat16", 8),
     ("vgg16", "float32", 1),
 )
+# the same cells and VGG-16 batch 8 planned under the card's budget
+CARD_CONFIGS = CONFIGS + (("vgg16", "float32", 8),)
+# the fusion sweep: ResNet-18's first block (run, first and last node), at
+# batches whose fused launch holds these shares of the card's L2; then two
+# VGG-16 pyramids at the shares their batches reach
+SWEEP_KNEE = ("resnet18/float32/b1", "b0_convA", "b0_convB")
+SWEEP_OTHERS = (("CONV3", "POOL2", (0.5, 1.0, 1.5, 2.0)),
+                ("CONV8", "POOL5", (1.5, 2.0)))
+SWEEP_SHARES = (0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0, 1.25, 1.5, 1.75,
+                2.0)
+# a fused launch slower per image than its layerwise launches by more than
+# this share lost (the timing medians spread by about 1 %); each median
+# over SWEEP_REPS timed calls
+SWEEP_NOISE = 0.01
+SWEEP_REPS = 15
+SWEEP_MAX_BATCH = 256
+# the times phase 2 and phase card sum over a kernel's timed pyramids
+TIMES = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
+         "ops_ms")
 INPUT_SIZE = 224
 NUM_CLASSES = 1000
 # the SOP + END path: the VGG-16 forward whose image and params it reuses,
@@ -314,8 +356,9 @@ def _smi() -> str:
     return out.stdout.strip()
 
 
-def _median_ms(fn, torch, *, setup=None, spin: bool = True) -> float:
-    """Median of per-call CUDA-event times after a warm-up.
+def _median_ms(fn, torch, *, setup=None, spin: bool = True,
+               reps: int = REPS) -> float:
+    """Median of ``reps`` per-call CUDA-event times after a warm-up.
 
     ``setup`` runs before each call, outside the timed span.  With
     ``spin`` the span holds the device's time for the call alone; without
@@ -326,7 +369,7 @@ def _median_ms(fn, torch, *, setup=None, spin: bool = True) -> float:
             setup()
         fn()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         if setup is not None:
             setup()
         if spin:
@@ -347,6 +390,7 @@ class Smoke:
     def __init__(self, device):
         import torch
 
+        from repro_torch.core.program import CARD_BUDGET, REFERENCE_BUDGET
         from repro_torch.net.graph import MODELS
         from repro_torch.net.partition import auto_partition
         from repro_torch.net.runner import (
@@ -356,21 +400,35 @@ class Smoke:
 
         self.torch = torch
         self.device = device
-        self.runs = []
-        masters = {}
-        for model, dtype, batch in CONFIGS:
+        # the reference's TPU budget, passed explicitly (kernel B's only
+        # route); then the same cells and VGG-16 batch 8 under the card's
+        # budget, the default, on the same params and images
+        self.runs, self.card_runs = [], []
+        masters, images = {}, {}
+        for (model, dtype, batch), budget, runs in (
+                [(c, REFERENCE_BUDGET, self.runs) for c in CONFIGS]
+                + [(c, CARD_BUDGET, self.card_runs) for c in CARD_CONFIGS]):
             graph = MODELS[model](input_size=INPUT_SIZE,
                                   num_classes=NUM_CLASSES)
             if model not in masters:
                 masters[model] = init_network_params(graph, seed=0,
                                                      device=device)
-            plan = auto_partition(graph, batch=batch, compute_dtype=dtype)
-            gen = torch.Generator(device=device).manual_seed(1 + batch)
-            x = torch.randn((batch, INPUT_SIZE, INPUT_SIZE,
-                             graph.in_channels), generator=gen, device=device)
-            self.runs.append(dict(
-                key=f"{model}/{dtype}/b{batch}", graph=graph, plan=plan,
-                params=masters[model], dtype=dtype, batch=batch, x=x,
+            if budget is CARD_BUDGET:
+                plan = auto_partition(graph, batch=batch, compute_dtype=dtype)
+                assert plan.budget is CARD_BUDGET
+            else:
+                plan = auto_partition(graph, batch=batch, compute_dtype=dtype,
+                                      budget=budget)
+            key = f"{model}/{dtype}/b{batch}"
+            if key not in images:
+                gen = torch.Generator(device=device).manual_seed(1 + batch)
+                images[key] = torch.randn(
+                    (batch, INPUT_SIZE, INPUT_SIZE, graph.in_channels),
+                    generator=gen, device=device)
+            runs.append(dict(
+                key=key if budget is REFERENCE_BUDGET else key + "@card",
+                graph=graph, plan=plan, params=masters[model], dtype=dtype,
+                batch=batch, x=images[key],
                 prepared=prepare_network_params(plan, masters[model]),
             ))
         # per kernel symbol: comparisons and timings of phase 2
@@ -443,8 +501,7 @@ class Smoke:
         symbol = (fc.PYRAMID_KTILED if knobs["c_tiles"] > 1
                   else fc.PYRAMID).symbol
         st = self.stats.setdefault(symbol, dict(
-            max_abs_err=0.0, ms=0.0, call_ms=0.0, plain_ms=0.0,
-            library_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, rows=[],
+            max_abs_err=0.0, **dict.fromkeys(TIMES, 0.0), rows=[],
         ))
         st["max_abs_err"] = max(st["max_abs_err"], err)
         if time_it:
@@ -463,11 +520,14 @@ class Smoke:
             bytes_ms, ops_ms = self.bound_ms(pyr, xp, bs, skip, y)
             # the bound's FLOPs over the bare kernel's time
             flops = ops_ms * 1e-3 * PEAK_FLOPS[run["dtype"]]
+            # the card plans' pyramids sum apart from the reference's
+            tally = (st.setdefault("card", dict.fromkeys(TIMES, 0.0))
+                     if run["key"].endswith("@card") else st)
             for k, v in (("ms", ms), ("call_ms", call_ms),
                          ("plain_ms", plain_ms), ("library_ms", library_ms),
                          ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
                          ("bound_ms", max(bytes_ms, ops_ms))):
-                st[k] += v
+                tally[k] += v
             st["rows"].append(dict(
                 run=run["key"], pyramid=pyr.name, regime=pyr.launch.regime,
                 alpha=pyr.launch.program.alpha, q=pyr.q_convs,
@@ -592,16 +652,15 @@ class Smoke:
 
     # ---- phase 3 ----------------------------------------------------------
 
-    def phase_end_to_end(self) -> dict[str, int]:
-        """Every forward of the main path once, each counted on its own
-        against its plan; then checked.  Returns each kernel's launches
-        summed over the forwards."""
+    def count_forwards(self, runs) -> dict[str, int]:
+        """Every forward of ``runs`` once, each counted on its own against
+        its plan; returns each kernel's launches summed over them."""
         from repro_torch.kernels import build
         from repro_torch.kernels.fused_conv import fused_conv as fc
         from repro_torch.net.runner import run_network
 
         totals = {k.symbol: 0 for k in fc.KERNELS}
-        for run in self.runs:
+        for run in runs:
             build.reset_launch_counts()
             run["logits"], run["skips"] = run_network(
                 run["x"], run["prepared"], plan=run["plan"]
@@ -618,13 +677,22 @@ class Smoke:
             for sym in totals:
                 totals[sym] += counts[sym]
         self.torch.cuda.synchronize()
+        return totals
+
+    def phase_end_to_end(self) -> dict[str, int]:
+        """Every forward of the main path under the reference's budget
+        once, each counted on its own against its plan; then checked.
+        Returns each kernel's launches summed over the forwards."""
+        totals = self.count_forwards(self.runs)
         if any(v == 0 for v in totals.values()):
             raise AssertionError(f"a kernel of the path never ran: {totals}")
         for run in self.runs:
             self.check_logits(run)
         return totals
 
-    def check_logits(self, run) -> None:
+    def logits_err(self, run) -> tuple[float, float]:
+        """The forward's logits against the port's ``reference_network``
+        on the card: (max abs error, tolerance), raising past it."""
         from repro_torch.net.graph import infer_shapes
         from repro_torch.net.runner import bf16_logit_tol, reference_network
 
@@ -642,6 +710,10 @@ class Smoke:
         if not err <= tol:
             raise AssertionError(f"{run['key']}: logits max abs err {err}"
                                  f" > tol {tol}")
+        return err, tol
+
+    def check_logits(self, run) -> None:
+        err, tol = self.logits_err(run)
         t = _forward_ms(run)
         rows = [r for st in self.stats.values() for r in st["rows"]
                 if r["run"] == run["key"]]
@@ -653,6 +725,239 @@ class Smoke:
                 "ms", "call_ms", "bound_ms", "plain_ms", "library_ms")},
         )
         print("end to end " + json.dumps(run["summary"]), flush=True)
+
+    # ---- phase 3, the card's budget ----------------------------------------
+
+    def phase_card(self) -> dict[str, int]:
+        """The main path's cells planned under the card's budget (the
+        default): every pyramid against its plain version, every forward
+        counted against its plan, its logits checked and its replayed and
+        eager forwards timed beside the reference-setting plan's; then the
+        fusion sweep that checks the budget.  Returns each kernel's
+        launches summed over the forwards."""
+        from repro_torch.kernels.fused_conv import fused_conv as fc
+
+        t0 = time.perf_counter()
+        for ri, run in enumerate(self.card_runs):
+            for pi, pyr in enumerate(run["plan"].pyramids):
+                self.compare(run, pyr, sparse=False, seed=1000 + 100 * ri + pi,
+                             time_it=True)
+        totals = self.count_forwards(self.card_runs)
+        if totals[fc.PYRAMID.symbol] == 0:
+            raise AssertionError(f"kernel A never ran on the card's plans:"
+                                 f" {totals}")
+        for run in self.card_runs:
+            self.card_summary(run)
+        self.sweep = self.fusion_sweep()
+        self.card_s = time.perf_counter() - t0
+        print(f"phase card: {self.card_s:.1f} s", flush=True)
+        return totals
+
+    def plan_rows(self, plan) -> dict:
+        """A plan's launches with what the card's model counts: Q, alpha,
+        cells, card bytes, modeled HBM bytes (halo tiles in, output out,
+        weights once), each at the plan's batch."""
+        b = plan.batch
+        rows = [dict(name=p.name, q=p.q_convs, alpha=p.launch.program.alpha,
+                     cells=b * p.launch.program.alpha ** 2,
+                     c_tiles=p.launch.c_tiles,
+                     card_bytes=p.launch.card_bytes(b),
+                     hbm_bytes=p.launch.program.hbm_bytes(b))
+                for p in plan.pyramids]
+        return dict(budget=str(plan.budget), n_launches=len(rows),
+                    card_bytes_max=max(r["card_bytes"] for r in rows),
+                    hbm_bytes=sum(r["hbm_bytes"] for r in rows),
+                    launches=rows)
+
+    def card_summary(self, run) -> None:
+        """One card-budget cell: its launches, its logits, its replayed and
+        eager forwards, its pyramids' summed times, and the same of the
+        reference-setting plan (phase 3's run of the cell, or one made here
+        for VGG-16 batch 8) and of the plan under twice the card's budget
+        where its launches differ."""
+        from repro_torch.core.program import REFERENCE_BUDGET
+        from repro_torch.net.partition import auto_partition
+        from repro_torch.net.runner import prepare_network_params, run_network
+
+        def other(budget, key):
+            """The cell under another budget: planned, run, checked and
+            timed."""
+            plan = auto_partition(run["graph"], batch=run["batch"],
+                                  compute_dtype=run["dtype"], budget=budget)
+            o = dict(run, key=key, plan=plan,
+                     prepared=prepare_network_params(plan, run["params"]))
+            o["logits"], _ = run_network(o["x"], o["prepared"], plan=plan)
+            self.logits_err(o)
+            o["summary"] = dict(forward_ms=_forward_ms(o),
+                                eager_forward_ms=_forward_ms(o, eager=True))
+            return o
+
+        def brief(o) -> dict:
+            return dict({k: v for k, v in self.plan_rows(o["plan"]).items()
+                         if k != "launches"},
+                        forward_ms=o["summary"]["forward_ms"],
+                        eager_forward_ms=o["summary"]["eager_forward_ms"])
+
+        err, tol = self.logits_err(run)
+        base = run["key"].replace("@card", "")
+        ref = next((r for r in self.runs if r["key"] == base), None)
+        if ref is None:
+            ref = other(REFERENCE_BUDGET, base)
+        # the card's model at twice its budget, where fused scratch spills
+        # the L2
+        twice = run["plan"].budget.scaled(2)
+        names = [p.node_names for p in run["plan"].pyramids]
+        l2x2 = auto_partition(run["graph"], batch=run["batch"],
+                              compute_dtype=run["dtype"], budget=twice)
+        l2x2_row = (dict(same_launches=True)
+                    if [p.node_names for p in l2x2.pyramids] == names
+                    else brief(other(twice, base + "@l2x2")))
+        rows = [r for st in self.stats.values() for r in st["rows"]
+                if r["run"] == run["key"]]
+        plan = self.plan_rows(run["plan"])
+        for row in plan.pop("launches"):
+            print(f"card launch {run['key']} " + json.dumps(row), flush=True)
+        run["summary"] = dict(
+            run=run["key"], launches=run["launches"], **plan,
+            logits_max_abs_err=err, tol=tol, forward_ms=_forward_ms(run),
+            eager_forward_ms=_forward_ms(run, eager=True),
+            **{f"sum_{k}": sum(r[k] for r in rows) for k in (
+                "ms", "call_ms", "bound_ms", "plain_ms", "library_ms")},
+            reference_plan=brief(ref), l2x2_plan=l2x2_row,
+        )
+        print("end to end card " + json.dumps(run["summary"]), flush=True)
+
+    def sweep_rows(self, key: str, first: str, last: str, shares) -> list:
+        """Kernel A on the nodes ``first``..``last`` of run ``key``'s graph
+        (its dtype and params) as one launch at alpha 1 against its
+        one-conv launches, per image, at the largest batch whose fused
+        launch holds each share of the L2 (its card bytes); each through
+        ``fused_pyramid`` (the pad included), device time behind a spin,
+        the two outputs compared."""
+        import dataclasses
+
+        from repro_torch.core.program import CARD_BUDGET, plan_launch
+        from repro_torch.kernels.fused_conv.ops import fused_pyramid
+        from repro_torch.net.graph import (
+            Segment,
+            fusable_segments,
+            infer_shapes,
+        )
+        from repro_torch.net.partition import partition_segment
+
+        torch = self.torch
+        l2 = torch.cuda.get_device_properties(self.device).L2_cache_size
+        run = next(r for r in self.runs if r["key"] == key)
+        graph, params, dtype = run["graph"], run["params"], run["dtype"]
+        whole = next(s for s in fusable_segments(graph)
+                     if first in [n.name for n in s.nodes])
+        names = [n.name for n in whole.nodes]
+        src = infer_shapes(graph)[graph.node(first).inputs[0]]
+        seg = Segment(nodes=whole.nodes[names.index(first):
+                                        names.index(last) + 1],
+                      input_size=src.size, in_channels=src.channels,
+                      relu=whole.relu)
+        unbounded = dataclasses.replace(CARD_BUDGET, nbytes=1 << 62)
+        fused = [plan_launch(seg.spec(), unbounded, compute_dtype=dtype)]
+        layerwise = partition_segment(seg, budget=unbounded, max_convs=1,
+                                      compute_dtype=dtype)
+        if fused[0].program.alpha != 1:
+            raise AssertionError(f"sweep: {first}..{last} is no alpha-1"
+                                 " launch")
+
+        def chain(launches, x):
+            y, i = x, 0
+            for lp in launches:
+                n = len(lp.spec.levels)
+                convs = [m.name for m in seg.nodes[i:i + n] if m.op == "conv"]
+                y, _ = fused_pyramid(
+                    y, [params[m][0] for m in convs],
+                    [params[m][1] for m in convs], spec=lp.spec,
+                    out_region=lp.out_region, streamed=False, x_slots=1,
+                    w_slots=1, c_tiles=1, relu=seg.relu, budget=unbounded,
+                    compute_dtype=dtype)
+                i += n
+            return y
+
+        rows, batches = [], []
+        for share in shares:
+            # the largest batch within the share (at small batches the
+            # split levels' partial sums make the bytes non-monotone)
+            batch = max((b for b in range(1, SWEEP_MAX_BATCH + 1)
+                         if fused[0].card_bytes(b) <= share * l2), default=1)
+            if batch in batches:
+                continue
+            batches.append(batch)
+            gen = torch.Generator(device=self.device).manual_seed(batch)
+            x = torch.randn((batch, seg.input_size, seg.input_size,
+                             seg.in_channels), generator=gen,
+                            device=self.device)
+            y_f, y_l = chain(fused, x), chain(layerwise, x)
+            err = float((y_f.float() - y_l.float()).abs().max())
+            if not err <= _tol(y_l.float(), dtype):
+                raise AssertionError(f"sweep {first}..{last} b{batch}: fused"
+                                     f" and layerwise differ by {err}")
+            f_ms = _median_ms(lambda: chain(fused, x), torch,
+                              reps=SWEEP_REPS)
+            l_ms = _median_ms(lambda: chain(layerwise, x), torch,
+                              reps=SWEEP_REPS)
+            rows.append(dict(
+                pyramid=f"{key} {first}..{last}", q=fused[0].program.q_convs,
+                batch=batch, card_bytes=fused[0].card_bytes(batch),
+                l2_share=fused[0].card_bytes(batch) / l2,
+                fused_ms_per_image=f_ms / batch,
+                layerwise_ms_per_image=l_ms / batch,
+                fused_over_layerwise=f_ms / l_ms, max_abs_err=err))
+            print("sweep " + json.dumps(rows[-1]), flush=True)
+            del x, y_f, y_l
+        return rows
+
+    def fusion_sweep(self) -> dict:
+        """The sweep that checks the card budget: ResNet-18's first block
+        (two 3x3 convs of 64 channels at 56^2) fused against its two
+        launches at 0.25x to 2x the L2 (:meth:`sweep_rows`).  The knee is
+        the largest share before the first at which the fused launch lost
+        (took more time per image than the two, past ``SWEEP_NOISE``, the
+        medians' run-to-run spread); the shares past it where fusion paid
+        again are printed beside it (a loss at a single batch whose tile
+        count fills the grid's last wave unevenly is no L2 effect).  The
+        run fails unless the card's budget is at most the card's L2 and
+        fusion pays on the whole at the shares within the budget: the
+        geometric mean of fused over layerwise there is below 1.  Then two
+        of VGG-16's pyramids the budget decides, at the shares their
+        batches reach: its second block (``CONV3..POOL2``) and its last six
+        levels (``CONV8..POOL5``, 28^2 and 14^2 maps of 512 channels)."""
+        import math
+
+        from repro_torch.core.program import CARD_BUDGET
+
+        l2 = self.torch.cuda.get_device_properties(self.device).L2_cache_size
+        rows = self.sweep_rows(*SWEEP_KNEE, SWEEP_SHARES)
+        lost = [r["fused_over_layerwise"] > 1.0 + SWEEP_NOISE for r in rows]
+        loss = lost.index(True) if any(lost) else len(rows)
+        knee = rows[loss - 1]["l2_share"] if loss else None
+        share = CARD_BUDGET.nbytes / l2
+        within = [r["fused_over_layerwise"] for r in rows
+                  if r["l2_share"] <= share]
+        geomean = (math.exp(sum(map(math.log, within)) / len(within))
+                   if within else None)
+        out = dict(pyramid=rows[0]["pyramid"], l2_bytes=l2,
+                   knee_l2_share=knee,
+                   paid_past_knee=[r["l2_share"] for r, x
+                                   in zip(rows[loss:], lost[loss:])
+                                   if not x],
+                   budget_bytes=CARD_BUDGET.nbytes, budget_l2_share=share,
+                   fused_over_layerwise_within_budget=geomean,
+                   budget_checked=(share <= 1.0 and geomean is not None
+                                   and geomean < 1.0))
+        print("sweep knee " + json.dumps(out), flush=True)
+        if not out["budget_checked"]:
+            raise AssertionError(f"the card budget fails the sweep: {out}")
+        out["rows"] = rows
+        out["others"] = [r for first, last, shares in SWEEP_OTHERS
+                         for r in self.sweep_rows("vgg16/float32/b1", first,
+                                                  last, shares)]
+        return out
 
     # ---- phase 4 ----------------------------------------------------------
 
@@ -3359,7 +3664,8 @@ class Ops:
             elif e.rung == "replan":
                 want[self._kernel(pyr)] -= 1
                 for sp in replan_pyramid(
-                        run["graph"], pyr, vmem_budget=e.detail["budget"],
+                        run["graph"], pyr, budget=dataclasses.replace(
+                            plan.budget, nbytes=e.detail["budget"]),
                         batch=run["batch"], compute_dtype=run["dtype"]):
                     want[self._kernel(sp)] += 1
                     subs += 1
@@ -3393,20 +3699,21 @@ class Ops:
         from repro_torch.net.partition import replan_pyramid
         from repro_torch.robust import BudgetError
 
-        plan = run["plan"]
-        sizes = sorted({p.launch.vmem_bytes() for p in plan.pyramids},
-                       reverse=True)
+        plan, batch = run["plan"], run["batch"]
+        sizes = sorted({plan.budget.working_set(p.launch, batch)
+                        for p in plan.pyramids}, reverse=True)
         for hi, lo in zip(sizes, sizes[1:] + [0]):
-            budget = (hi + lo) // 2
+            budget = dataclasses.replace(plan.budget, nbytes=(hi + lo) // 2)
             try:
                 splits = [len(replan_pyramid(
-                    run["graph"], p, vmem_budget=budget, batch=run["batch"],
+                    run["graph"], p, budget=budget, batch=batch,
                     compute_dtype=run["dtype"]))
-                    for p in plan.pyramids if p.launch.vmem_bytes() > budget]
+                    for p in plan.pyramids
+                    if not budget.fits(p.launch, batch)]
             except BudgetError:
                 continue
             if max(splits) >= 2:
-                return budget / plan.vmem_budget
+                return budget.nbytes / plan.budget.nbytes
         raise AssertionError(f"ops {run['key']}: no budget squeeze splits a"
                              " launch")
 
@@ -3530,7 +3837,8 @@ class Ops:
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         out = subprocess.run(
             [sys.executable, "-m", "repro_torch.obs.explain", "--model",
-             "resnet18", "--run", "--guard", "--trace", str(path)],
+             "resnet18", "--run", "--guard", "--trace", str(path),
+             "--budget", "reference"],
             cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
         )
         for line in out.stdout.splitlines():
@@ -3598,10 +3906,12 @@ class Serve:
         self.launches = {}
 
     def engine(self, **cfg):
+        from repro_torch.core.program import REFERENCE_BUDGET
         from repro_torch.net.serve import ServeConfig, ServingEngine
 
         return ServingEngine(self.graph, self.master,
-                             ServeConfig(buckets=SERVE_BUCKETS, **cfg),
+                             ServeConfig(buckets=SERVE_BUCKETS,
+                                         budget=REFERENCE_BUDGET, **cfg),
                              device=self.device)
 
     def images(self, rows, seed):
@@ -3977,7 +4287,8 @@ class Serve:
             t0 = time.perf_counter()
             proc = subprocess.run(
                 [sys.executable, "-m", "repro_torch.net.serve", "--model",
-                 "resnet18", "--requests", "32", *extra],
+                 "resnet18", "--requests", "32", "--budget", "reference",
+                 *extra],
                 cwd=ROOT, env=env, capture_output=True, text=True,
                 timeout=600,
             )
@@ -4016,6 +4327,10 @@ def _eager_forward(x, params, plan, dtype):
 
     with full_fp32():
         return _forward(x, params, plan=plan, end_skip=True, cdt=dtype)
+
+
+def _bound_by(times) -> str:
+    return "bytes" if times["bytes_ms"] >= times["ops_ms"] else "operations"
 
 
 def _forward_ms(run, *, eager: bool = False) -> float:
@@ -4117,6 +4432,7 @@ def main(argv=None) -> int:
         smoke = Smoke(device)
         smoke.phase_pyramids()
         counts = smoke.phase_end_to_end()
+        card_counts = smoke.phase_card()
         sop = smoke.phase_sop()
         # phase 3's captured forwards give their memory back for lm's peak
         from repro_torch.net.runner import clear_compiled_cache
@@ -4147,15 +4463,18 @@ def main(argv=None) -> int:
             st = smoke.stats[k.symbol]
             kernels.append(dict(
                 name=k.symbol, route="cuda", source=k.source,
-                replaces=k.replaces, launches=counts[k.symbol],
+                replaces=k.replaces,
+                launches=counts[k.symbol] + card_counts[k.symbol],
                 launches_per_forward={r["key"]: r["launches"][k.symbol]
-                                      for r in smoke.runs},
+                                      for r in smoke.runs + smoke.card_runs},
                 max_abs_err=st["max_abs_err"], ms=st["ms"],
                 call_ms=st["call_ms"],
                 plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
-                bound_by=("bytes" if st["bytes_ms"] >= st["ops_ms"]
-                          else "operations"),
-                library_ms=st["library_ms"],
+                bound_by=_bound_by(st), library_ms=st["library_ms"],
+                card=(None if "card" not in st else dict(
+                    st["card"], bound_by=_bound_by(st["card"]),
+                    pyramids=sum(r["run"].endswith("@card")
+                                 for r in st["rows"]))),
             ))
         kernels.append(sop)
         kernels.append(ssd)
@@ -4167,6 +4486,9 @@ def main(argv=None) -> int:
                 card=_smi(), kernels=kernels,
                 pyramids={s: v["rows"] for s, v in smoke.stats.items()},
                 end_to_end=[r["summary"] for r in smoke.runs],
+                card_budget=dict(
+                    cells=[r["summary"] for r in smoke.card_runs],
+                    sweep=smoke.sweep, seconds=smoke.card_s),
                 sop=smoke.sop_rows,
                 lm=lm.summary,
                 hybrid=hybrid.summary,

@@ -9,7 +9,8 @@
 :mod:`repro_torch.configs.shapes`.
 """
 
-from .base import ARCH_IDS, ArchConfig, get_config
-from .shapes import SHAPES, ShapeConfig
+from .base import ARCH_IDS, ArchConfig, all_configs, get_config
+from .shapes import SHAPES, ShapeConfig, cells
 
-__all__ = ["ARCH_IDS", "ArchConfig", "SHAPES", "ShapeConfig", "get_config"]
+__all__ = ["ARCH_IDS", "ArchConfig", "SHAPES", "ShapeConfig", "all_configs",
+           "cells", "get_config"]

@@ -163,3 +163,7 @@ def get_config(name: str) -> ArchConfig:
     mod = importlib.import_module(f"repro_torch.configs.{key}")
     return mod.CONFIG
 
+
+def all_configs() -> dict[str, ArchConfig]:
+    """Every architecture's config, keyed by id in :data:`ARCH_IDS` order."""
+    return {a: get_config(a) for a in ARCH_IDS}

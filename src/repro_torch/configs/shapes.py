@@ -40,3 +40,13 @@ def cell_supported(cfg, shape: ShapeConfig) -> tuple[bool, str]:
             f"{cfg.name} is pure full-attention (assignment: skip + record)"
         )
     return True, ""
+
+
+def cells(configs: dict):
+    """Yield ``(arch_id, cfg, shape, supported, reason)`` for the full
+    matrix of ``configs`` (e.g. :func:`repro_torch.configs.base.all_configs`)
+    against every shape."""
+    for arch_id, cfg in configs.items():
+        for shape in SHAPES.values():
+            ok, why = cell_supported(cfg, shape)
+            yield arch_id, cfg, shape, ok, why

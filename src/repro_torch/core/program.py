@@ -3,12 +3,24 @@ the hand-written fused-pyramid kernel.
 
 A jax-free copy of ``repro.core.program`` (the reference package's
 ``core/__init__`` imports jax, so even its pure-Python modules cannot be
-imported from here).  Every dataclass field, byte model and cycle model is
-kept identical on purpose: the port runs exactly the reference's plans, so
-the plan-parity tests compare the two field by field.  ``VMEM_BUDGET_BYTES``
-is the *parity budget* (the TPU core's VMEM), not a Hopper constraint: the
-CUDA kernel stages inter-level tiles in a global scratch and can run any
-plan the reference can.
+imported from here).  Every dataclass field, byte model and cycle model of
+the reference is kept identical on purpose, so the plan-parity tests can
+compare the two field by field.
+
+Plans are made under a :class:`Budget`, a memory model and its size:
+
+* :data:`CARD_BUDGET` (a :class:`CardBudget`), the default, plans for the
+  H100 the port runs on.
+  The CUDA pyramid kernel sweeps all grid cells of a launch level by level
+  and keeps the inter-level tiles in a global scratch, which saves HBM
+  traffic while it stays in the card's L2.  A launch's working set is what
+  the kernel's wrapper allocates for it (:meth:`LaunchPlan.card_bytes`,
+  from :func:`card_layout`, the geometry the wrapper's descriptor is built
+  from); a fused launch must fit the card's L2 (``configs/h100.py``).
+* :data:`REFERENCE_BUDGET` (a :class:`TpuVmemBudget`) is the reference's
+  TPU budget, 16 MiB of one TPU v5e core's VMEM with its per-grid-cell
+  working set and its resident/streamed ladder, kept only so the port's
+  plans can be held equal to the reference's.
 
 ``FusionSpec`` + a chosen output region lower to a static *tile program*:
 
@@ -28,10 +40,11 @@ plan the reference can.
 * **Pool epilogues** — each pool level is folded into the preceding conv
   level's program (the paper's Fig. 4 pooling block is slaved to the conv
   tile; see DESIGN.md §3).
-* **VMEM-budget accounting** — :meth:`TileProgram.vmem_bytes` models the
-  kernel's resident working set; :func:`pick_out_region` scans output regions
-  against the budget and :meth:`TileProgram.hbm_bytes` models the per-launch
-  off-chip traffic (the quantity fusion minimizes).
+* **Budget accounting** — :meth:`LaunchPlan.card_bytes` and
+  :meth:`TileProgram.vmem_bytes` model the two budgets' working sets;
+  :func:`plan_launch` scans output regions against a budget and
+  :meth:`TileProgram.hbm_bytes` models the per-launch off-chip traffic
+  (the quantity fusion minimizes).
 
 The compiler is pure Python over static shapes: programs are frozen,
 hashable dataclasses (usable as cache keys).
@@ -39,12 +52,14 @@ hashable dataclasses (usable as cache keys).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import ClassVar
+
+from repro_torch.configs import h100
 
 from .dtypes import DTYPE_BYTES, canonical_dtype
 from .fusion import FusionSpec, receptive_window
-
-VMEM_BUDGET_BYTES = 16 * 1024 * 1024  # v5e per-core VMEM
 
 # Modeled HBM service rate of the cycle model's 100 MHz accelerator, in bytes
 # per cycle (6.4 GB/s).  Only ratios matter: the constant sets how expensive a
@@ -474,6 +489,91 @@ def compile_program(
     )
 
 
+# ---------------------------------------------------------------------------
+# The CUDA pyramid kernel's launch geometry (csrc/fused_pyramid.cu)
+# ---------------------------------------------------------------------------
+
+# the kernel's conv tiles: CONV_TILE_M[tile] pixels (kBMLarge, kBMSmall) x
+# CONV_TILE_N channels (kBN), its K*K*Cin step (kBK), its most conv levels
+# (kMaxLevels); scratch values per cell are a multiple of SCRATCH_ALIGN
+# (16-byte aligned cells)
+CONV_TILE_M, CONV_TILE_N, CONV_TILE_K = (128, 64), 64, 32
+MAX_LEVELS = 16
+SCRATCH_ALIGN = 8
+# the kernel indexes its scratch and partial sums in 32 bits
+INDEX_LIMIT = 2 ** 31
+
+
+def conv_tile(pix: int) -> int:
+    """The conv tile of a level of ``pix`` output pixels per cell, as an
+    index into :data:`CONV_TILE_M`: the large tile, unless it would cover
+    at least 25 % more rows than the small one (a 7 x 7 level fills 49 of
+    128 rows but 49 of 64)."""
+    large, small = (-(-pix // m) * m for m in CONV_TILE_M)
+    return 1 if 4 * large >= 5 * small else 0
+
+
+def k_splits(tiles: int, kdim: int, grid: int) -> int:
+    """How many ways a level splits its K*K*Cin sum across blocks: enough
+    to give every block of the grid work when the level has fewer conv
+    tiles than blocks (deep layers at batch 1), keeping at least one
+    K-step per split; 1 when the tiles alone fill the grid."""
+    if tiles >= grid:
+        return 1
+    return max(1, min(grid // tiles, -(-kdim // CONV_TILE_K)))
+
+
+@dataclass(frozen=True)
+class CardLayout:
+    """What one launch of the CUDA pyramid kernel holds besides its input
+    and output: ``cells`` grid cells, each with ``cap`` compute-dtype values
+    in each of three scratch buffers (two ping-pong level outputs and the
+    pre-pool conv tiles), each level's conv tile (``tiles``) and K-split
+    (``splits``), and ``partial`` float32 partial sums of the split
+    levels.  The kernel's wrapper builds its descriptor and its buffers from
+    this, and the card budget counts it, so the two cannot drift."""
+
+    cells: int
+    cap: int
+    tiles: tuple[int, ...]
+    splits: tuple[int, ...]
+    partial: int
+
+    @property
+    def scratch_vals(self) -> int:
+        return 3 * self.cells * self.cap
+
+    def within_index_limit(self) -> bool:
+        """True while the kernel's 32-bit scratch and partial-sum indices
+        reach every value."""
+        return max(self.scratch_vals, self.partial) < INDEX_LIMIT
+
+
+def card_layout(program: TileProgram, batch: int,
+                grid: int = h100.PYRAMID_GRID) -> CardLayout:
+    """The :class:`CardLayout` of ``program`` launched at ``batch`` on a
+    cooperative grid of ``grid`` blocks."""
+    cells = batch * program.alpha ** 2
+    cap = max(
+        max(p.out_size, p.pool_out) ** 2 * p.n_out for p in program.levels
+    )
+    cap = -(-cap // SCRATCH_ALIGN) * SCRATCH_ALIGN
+    tiles, splits, partial = [], [], 0
+    for p in program.levels:
+        pix = p.out_size ** 2
+        tile = conv_tile(pix)
+        n_tiles = cells * -(-pix // CONV_TILE_M[tile]) * -(
+            -p.n_out // CONV_TILE_N
+        )
+        split = k_splits(n_tiles, p.K * p.K * p.n_in, grid)
+        if split > 1:
+            partial = max(partial, split * cells * pix * p.n_out)
+        tiles.append(tile)
+        splits.append(split)
+    return CardLayout(cells=cells, cap=cap, tiles=tuple(tiles),
+                      splits=tuple(splits), partial=partial)
+
+
 @dataclass(frozen=True)
 class LaunchPlan:
     """A costed, VMEM-feasible single-launch configuration of one pyramid.
@@ -544,6 +644,33 @@ class LaunchPlan:
         return self.program.hbm_bytes(
             batch, streamed=self.streamed, c_tiles=self.c_tiles
         )
+
+    def card_bytes(self, batch: int = 1,
+                   grid: int = h100.PYRAMID_GRID) -> int:
+        """What the CUDA kernel's wrapper allocates for this launch at
+        ``batch`` besides its input and output
+        (:func:`repro_torch.kernels.fused_conv.fused_conv.prepare_launch`):
+        the three scratch buffers, the float32 partial sums of the split
+        levels (at least one value), the weights and biases, the int32
+        live flags of every cell and level, and the two-word grid
+        barrier."""
+        lay = card_layout(self.program, batch, grid)
+        prog = self.program
+        return (
+            prog.bytes_per_val * (lay.scratch_vals + prog.weight_floats())
+            + DTYPE_BYTES["float32"] * max(lay.partial, 1)
+            + DTYPE_BYTES["int32"] * (lay.cells * prog.q_convs + 2)
+        )
+
+    def card_flops(self, batch: int = 1) -> int:
+        """FLOPs the CUDA kernel does for this launch: every cell's tiles
+        at every level, halo recompute included (2 per multiply-add)."""
+        prog = self.program
+        per_cell = sum(
+            2 * p.out_size ** 2 * p.K * p.K * p.n_in * p.n_out
+            for p in prog.levels
+        )
+        return batch * prog.alpha ** 2 * per_cell
 
     def slice_bytes(self) -> int:
         """Bytes of one per-``k`` streamed weight slice of the last level —
@@ -686,14 +813,14 @@ class LaunchPlan:
             max_cells=max_cells,
         )
 
-    def describe(
-        self, batch: int = 1, vmem_budget: int | None = None
-    ) -> dict:
+    def describe(self, batch: int = 1, budget: Budget | None = None) -> dict:
         """The launch as one observability row: every plan knob plus the
         modeled byte/cycle quantities the planner optimized, in one flat
         JSON-safe dict (the span schema of DESIGN.md §12 and the row format
-        of :mod:`repro_torch.obs.explain`).  ``vmem_budget`` adds the
-        headroom column (budget minus modeled working set)."""
+        of :mod:`repro_torch.obs.explain`), with the reference's keys.
+        ``vmem_bytes`` is the working set under ``budget``'s model (the
+        reference's VMEM model when ``budget`` is None), and ``budget``
+        adds the headroom column (budget minus that working set)."""
         prog = self.program
         row = {
             "q_convs": prog.q_convs,
@@ -707,14 +834,15 @@ class LaunchPlan:
             "compute_dtype": prog.compute_dtype,
             "batch": batch,
             "hbm_bytes": self.hbm_bytes(batch),
-            "vmem_bytes": self.vmem_bytes(),
+            "vmem_bytes": (REFERENCE_BUDGET if budget is None
+                           else budget).working_set(self, batch),
             "slice_bytes": self.slice_bytes(),
             "modeled_cycles": self.modeled_cycles(batch),
             "body_cycles": self.body_cycles(),
             "input_dma_cycles": prog.input_dma_cycles(),
         }
-        if vmem_budget is not None:
-            row["vmem_headroom_bytes"] = vmem_budget - row["vmem_bytes"]
+        if budget is not None:
+            row["vmem_headroom_bytes"] = budget.nbytes - row["vmem_bytes"]
         return row
 
     def modeled_cycles(self, batch: int = 1) -> int:
@@ -754,9 +882,290 @@ class LaunchPlan:
         return self.modeled_cycles(batch) / DEFAULT_PARAMS.freq_mhz
 
 
+@dataclass(frozen=True)
+class Budget:
+    """What every launch of a plan must fit: a memory model and its size.
+
+    Each model is a subclass, so callers never ask which one they hold:
+    :class:`CardBudget` (:data:`CARD_BUDGET`, the default) and
+    :class:`TpuVmemBudget` (:data:`REFERENCE_BUDGET`, kept for parity).
+    ``model`` names the model in events and messages; ``label`` heads the
+    working-set column and keys a ``BudgetError``'s context."""
+
+    nbytes: int
+    model: ClassVar[str]
+    label: ClassVar[str]
+
+    def __str__(self) -> str:
+        return f"{self.model} budget of {self.nbytes:,} bytes"
+
+    def scaled(self, factor: float) -> Budget:
+        """The same model with ``factor`` times the bytes."""
+        return dataclasses.replace(self, nbytes=int(self.nbytes * factor))
+
+    def context(self, working_set: int | None = None) -> dict:
+        """A ``BudgetError``'s context keys for this budget: the
+        reference's ``vmem_*`` keys under its model, ``card_*`` on the
+        card."""
+        ctx = {f"{self.label}_budget": self.nbytes}
+        if working_set is not None:
+            ctx[f"{self.label}_bytes"] = working_set
+        return ctx
+
+    def working_set(self, launch: LaunchPlan, batch: int = 1) -> int:
+        """The bytes of ``launch`` at ``batch`` that this budget counts."""
+        raise NotImplementedError
+
+    def fits(self, launch: LaunchPlan, batch: int = 1) -> bool:
+        raise NotImplementedError
+
+    def cost(self, launch: LaunchPlan, batch: int = 1) -> tuple:
+        """The partitioner's lexicographic cost of one launch: modeled HBM
+        bytes, then a tie-break."""
+        raise NotImplementedError
+
+    def plan(self, spec: FusionSpec, regions: list[int], *, batch: int,
+             allow_stream: bool, compute_dtype: str) -> LaunchPlan | None:
+        """The launch :func:`plan_launch` picks among ``regions`` (in
+        preference order), or None when none fits."""
+        raise NotImplementedError
+
+    def launch_knobs(self, prog: TileProgram, streamed, w_slots, x_slots,
+                     c_tiles) -> tuple[bool, int, int, int]:
+        """``(streamed, w_slots, x_slots, c_tiles)`` of a launch of
+        ``prog`` with every ``None`` derived under this model."""
+        raise NotImplementedError
+
+    def group_floor(self, spec: FusionSpec, compute_dtype: str) -> int:
+        """The least bytes under which the lone conv group ``spec`` still
+        has a launch (:func:`repro_torch.net.partition.min_budget`)."""
+        raise NotImplementedError
+
+    def refusal(self, batch: int) -> str:
+        """What a message refusing a lone conv group adds about why."""
+        raise NotImplementedError
+
+    def retry_hint(self, streamed: bool) -> str:
+        """What a message refusing a pinned launch suggests first."""
+        return ""
+
+
+@dataclass(frozen=True)
+class CardBudget(Budget):
+    """The H100's model.  A launch's working set is
+    :meth:`LaunchPlan.card_bytes`.  A one-group launch (Q = 1, a conv with
+    its pools) always fits; a fused launch (Q >= 2) fits while its working
+    set does, because its inter-level scratch saves HBM traffic only while
+    it stays in the L2.  Either must stay inside the kernel's 32-bit
+    scratch indices and its :data:`MAX_LEVELS`.  Plans are resident with
+    one input and one weight slot, untiled: the kernel ignores those knobs,
+    and ``c_tiles`` changes no footprint on the card.  Cost: modeled HBM
+    bytes (halo tiles in, output and flags out, weights once; nothing for
+    the scratch), then the roofline time at the card's rates
+    (``configs/h100.py``)."""
+
+    model: ClassVar[str] = "h100_l2"
+    label: ClassVar[str] = "card"
+
+    def working_set(self, launch: LaunchPlan, batch: int = 1) -> int:
+        return launch.card_bytes(batch)
+
+    def fits(self, launch: LaunchPlan, batch: int = 1) -> bool:
+        prog = launch.program
+        if prog.q_convs > MAX_LEVELS:
+            return False
+        if not card_layout(prog, batch).within_index_limit():
+            return False
+        return prog.q_convs == 1 or launch.card_bytes(batch) <= self.nbytes
+
+    def cost(self, launch: LaunchPlan, batch: int = 1) -> tuple:
+        """HBM bytes, then the launch's roofline time, max(bytes / HBM_BW,
+        FLOPs / peak rate of its dtype), scaled by HBM_BW x that peak rate
+        so it is an exact integer (sums of it do not depend on their
+        order)."""
+        hbm = launch.hbm_bytes(batch)
+        peak = int(h100.PEAK_FLOPS_BY_TYPE[launch.program.compute_dtype])
+        return hbm, max(hbm * peak,
+                        launch.card_flops(batch) * int(h100.HBM_BW))
+
+    def plan(self, spec, regions, *, batch, allow_stream, compute_dtype):
+        """The first region whose resident launch fits at ``batch``;
+        ``allow_stream`` has nothing to stream."""
+        for r in regions:
+            launch = LaunchPlan(
+                program=compile_program(spec, r, compute_dtype=compute_dtype),
+                streamed=False, x_slots=1,
+            )
+            if self.fits(launch, batch):
+                return launch
+        return None
+
+    def launch_knobs(self, prog, streamed, w_slots, x_slots, c_tiles):
+        return bool(streamed), w_slots or 1, x_slots or 1, c_tiles or 1
+
+    def group_floor(self, spec, compute_dtype) -> int:
+        return 0  # a lone group fits whatever the budget
+
+    def refusal(self, batch: int) -> str:
+        return (f" at batch {batch} (the CUDA kernel's 32-bit scratch"
+                " indices or its level count)")
+
+
+@dataclass(frozen=True)
+class TpuVmemBudget(Budget):
+    """The reference's TPU model, kept only for parity with the
+    reference's plans: one grid cell's tiles plus the weights against a
+    core's VMEM (:meth:`LaunchPlan.vmem_bytes`), the resident/streamed
+    ladder, and the cycle model's tie-break."""
+
+    model: ClassVar[str] = "tpu_vmem"
+    label: ClassVar[str] = "vmem"
+
+    def working_set(self, launch: LaunchPlan, batch: int = 1) -> int:
+        return launch.vmem_bytes()
+
+    def fits(self, launch: LaunchPlan, batch: int = 1) -> bool:
+        return launch.vmem_bytes() <= self.nbytes
+
+    def cost(self, launch: LaunchPlan, batch: int = 1) -> tuple:
+        """HBM bytes, then the reference's modeled cycles."""
+        return (float(launch.hbm_bytes(batch)),
+                float(launch.modeled_cycles(batch)))
+
+    def plan(self, spec, regions, *, batch, allow_stream, compute_dtype):
+        """The reference's ladder (see :func:`plan_launch`)."""
+        vmem_budget = self.nbytes
+
+        def x_options(prog: TileProgram) -> tuple[int, ...]:
+            return (1,) if prog.alpha == 1 else (2, 1)
+
+        def pick_x(prog: TileProgram, build) -> LaunchPlan | None:
+            """Cheapest feasible input-buffer knob of one rung, costed at
+            ``batch``: ``build(xs)`` returns the rung's plan at
+            ``x_slots=xs`` or None when it busts VMEM.  The prefetch
+            pipeline is never modeled slower than serial at any batch; on
+            a tie keep the extra landing slot (the historical ladder's
+            preference)."""
+            cands = [p for p in (build(xs) for xs in x_options(prog)) if p]
+            if not cands:
+                return None
+            return min(cands,
+                       key=lambda p: (p.modeled_cycles(batch), -p.x_slots))
+
+        def feasible(plan: LaunchPlan) -> LaunchPlan | None:
+            return plan if plan.vmem_bytes() <= vmem_budget else None
+
+        for r in regions:
+            prog = compile_program(spec, r, compute_dtype=compute_dtype)
+            plan = pick_x(
+                prog,
+                lambda xs, prog=prog: feasible(
+                    LaunchPlan(program=prog, streamed=False, x_slots=xs)
+                ),
+            )
+            if plan is not None:
+                return plan
+        if allow_stream:
+            # region preference stays primary (a smaller region multiplies
+            # the alpha^2 streamed weight re-reads); within a region prefer
+            # the double-buffered two-slot weight pipeline over
+            # channel-tiled double buffering over the blocking single slot,
+            # and within a weight regime the cheapest feasible input buffer
+            # at ``batch``
+            for r in regions:
+                prog = compile_program(spec, r, compute_dtype=compute_dtype)
+                rungs = [dict(w_slots=2)]
+                rungs += [dict(w_slots=2, c_tiles=ct)
+                          for ct in prog.c_tile_options()]
+                rungs += [dict(w_slots=1)]
+                for knobs in rungs:
+                    plan = pick_x(
+                        prog,
+                        lambda xs, prog=prog, knobs=knobs: feasible(
+                            LaunchPlan(
+                                program=prog, streamed=True, x_slots=xs,
+                                **knobs
+                            )
+                        ),
+                    )
+                    if plan is not None:
+                        return plan
+        return None
+
+    def launch_knobs(self, prog, streamed, w_slots, x_slots, c_tiles):
+        """The reference wrapper's knob resolution under its VMEM model."""
+        vmem_budget = self.nbytes
+        # a caller-pinned x_slots=2 charges the extra landing slot to every
+        # regime, including the resident-vs-streamed decision itself
+        xs_pinned = x_slots if x_slots is not None else 1
+        stream = (
+            prog.vmem_bytes(xs_pinned) > vmem_budget
+            if streamed is None
+            else streamed
+        )
+        if stream and (w_slots is None or c_tiles is None):
+            w_slots, c_tiles = prog.resolve_stream_regime(
+                vmem_budget, xs_pinned, w_slots, c_tiles
+            )
+        if not stream:
+            w_slots = 1  # unused by the resident regime
+        if c_tiles is None:
+            c_tiles = 1  # channel tiling is opt-in outside the streamed ladder
+        if x_slots is None:
+            if prog.alpha == 1:
+                x_slots = 1  # no successor cell: nothing to prefetch
+            elif stream:
+                x_slots = (
+                    2
+                    if prog.vmem_stream_bytes(w_slots, 2, c_tiles)
+                    <= vmem_budget
+                    else 1
+                )
+            else:
+                x_slots = (2 if prog.vmem_bytes(2, c_tiles) <= vmem_budget
+                           else 1)
+        return stream, w_slots, x_slots, c_tiles
+
+    def group_floor(self, spec, compute_dtype) -> int:
+        """The reference's ``min_vmem_budget`` term of one group: its
+        cheapest regime over every exactly-tiling region."""
+        out_size = spec.feature_sizes()[-1]
+
+        def cheapest_regime(prog) -> int:
+            # the floor includes the channel-tiled streamed rung: a finely
+            # sliced last level can undercut even the blocking single-slot
+            # regime when one level's weights dominate
+            tiled = min(
+                (prog.vmem_stream_bytes(2, 1, ct)
+                 for ct in prog.c_tile_options()),
+                default=prog.vmem_stream_bytes(),
+            )
+            return min(prog.vmem_bytes(), prog.vmem_stream_bytes(), tiled)
+
+        return min(
+            cheapest_regime(compile_program(spec, r,
+                                            compute_dtype=compute_dtype))
+            for r in range(1, out_size + 1)
+            if out_size % r == 0
+        )
+
+    def refusal(self, batch: int) -> str:
+        return " (streamed)"
+
+    def retry_hint(self, streamed: bool) -> str:
+        return "" if streamed else "; retry with streamed weights or"
+
+
+# the default: the H100's L2 (configs/h100.py)
+CARD_BUDGET = CardBudget(h100.PLAN_BUDGET_BYTES)
+# the reference's TPU budget (one TPU v5e core's 16 MiB of VMEM), kept only
+# so the port's plans can be held equal to the reference's
+REFERENCE_BUDGET = TpuVmemBudget(16 * 1024 * 1024)
+
+
 def plan_launch(
     spec: FusionSpec,
-    vmem_budget: int = VMEM_BUDGET_BYTES,
+    budget: Budget = CARD_BUDGET,
     *,
     batch: int = 1,
     allow_stream: bool = True,
@@ -764,7 +1173,15 @@ def plan_launch(
     compute_dtype="float32",
 ) -> LaunchPlan | None:
     """Pick the launch configuration for one pyramid: an exactly-tiling
-    output region whose program fits the VMEM budget, preferring
+    output region whose launch fits ``budget``.
+
+    On the card (:data:`CARD_BUDGET`) that is the first region in
+    ``prefer_region`` order whose resident launch fits at ``batch``, with
+    one input and one weight slot and no channel tiling (the kernel runs
+    every launch that way); ``allow_stream`` has nothing to stream.
+
+    Under the reference's model (:data:`REFERENCE_BUDGET`), the rest of
+    this docstring holds, as in the reference: prefer
     fully-resident weights over per-level streaming (which re-reads weights
     once per grid cell), and double-buffered streaming (DMA overlapped with
     compute) over the blocking single-slot fallback.  Between those two
@@ -807,77 +1224,28 @@ def plan_launch(
     regions = [r for r in range(out_size, 0, -1) if out_size % r == 0]
     if prefer_region == "smallest":
         regions.reverse()
-
-    def x_options(prog: TileProgram) -> tuple[int, ...]:
-        return (1,) if prog.alpha == 1 else (2, 1)
-
-    def pick_x(prog: TileProgram, build) -> LaunchPlan | None:
-        """Cheapest feasible input-buffer knob of one rung, costed at
-        ``batch``: ``build(xs)`` returns the rung's plan at ``x_slots=xs``
-        or None when it busts VMEM.  The prefetch pipeline is never modeled
-        slower than serial at any batch; on a tie keep the extra landing
-        slot (the historical ladder's preference)."""
-        cands = [p for p in (build(xs) for xs in x_options(prog)) if p]
-        if not cands:
-            return None
-        return min(cands, key=lambda p: (p.modeled_cycles(batch), -p.x_slots))
-
-    def feasible(plan: LaunchPlan) -> LaunchPlan | None:
-        return plan if plan.vmem_bytes() <= vmem_budget else None
-
-    for r in regions:
-        prog = compile_program(spec, r, compute_dtype=compute_dtype)
-        plan = pick_x(
-            prog,
-            lambda xs, prog=prog: feasible(
-                LaunchPlan(program=prog, streamed=False, x_slots=xs)
-            ),
-        )
-        if plan is not None:
-            return plan
-    if allow_stream:
-        # region preference stays primary (a smaller region multiplies the
-        # alpha^2 streamed weight re-reads); within a region prefer the
-        # double-buffered two-slot weight pipeline over channel-tiled
-        # double buffering over the blocking single slot, and within a
-        # weight regime the cheapest feasible input buffer at ``batch``
-        for r in regions:
-            prog = compile_program(spec, r, compute_dtype=compute_dtype)
-            rungs = [dict(w_slots=2)]
-            rungs += [dict(w_slots=2, c_tiles=ct) for ct in prog.c_tile_options()]
-            rungs += [dict(w_slots=1)]
-            for knobs in rungs:
-                plan = pick_x(
-                    prog,
-                    lambda xs, prog=prog, knobs=knobs: feasible(
-                        LaunchPlan(
-                            program=prog, streamed=True, x_slots=xs, **knobs
-                        )
-                    ),
-                )
-                if plan is not None:
-                    return plan
-    return None
+    return budget.plan(spec, regions, batch=batch,
+                       allow_stream=allow_stream, compute_dtype=compute_dtype)
 
 
 def pick_out_region(
     spec: FusionSpec,
-    vmem_budget: int = VMEM_BUDGET_BYTES,
+    budget: Budget = CARD_BUDGET,
     *,
     allow_stream: bool = True,
     compute_dtype="float32",
 ) -> int | None:
-    """Largest output region that tiles the output exactly and whose program
-    fits the VMEM budget — the TPU analogue of the paper's ``H <= IFM``
+    """Largest output region that tiles the output exactly and whose launch
+    fits ``budget`` at batch 1 — the analogue of the paper's ``H <= IFM``
     feasibility bound (DESIGN.md §2 assumption change #2).
 
-    Fully-resident weights are preferred; when no region fits that way and
-    ``allow_stream``, regions feasible under per-level weight streaming are
-    considered.  Returns ``None`` when nothing fits (the chain must then be
-    chunked).
+    Under the reference's model, fully-resident weights are preferred; when
+    no region fits that way and ``allow_stream``, regions feasible under
+    per-level weight streaming are considered.  Returns ``None`` when
+    nothing fits (the chain must then be chunked).
     """
     plan = plan_launch(
-        spec, vmem_budget, allow_stream=allow_stream,
+        spec, budget, allow_stream=allow_stream,
         compute_dtype=compute_dtype,
     )
     return None if plan is None else plan.out_region

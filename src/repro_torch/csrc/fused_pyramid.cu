@@ -105,7 +105,8 @@ namespace {
 
 constexpr int kMaxLevels = 16;
 // conv tile: kBM[tile] pixels x kBN channels, the K*K*Cin sum in kBK steps
-// (mirrored by _TILE_M / _TILE_N / _TILE_K in fused_conv.py)
+// (mirrored by CONV_TILE_M / CONV_TILE_N / CONV_TILE_K in
+// repro_torch/core/program.py, whose card_layout the wrapper builds on)
 constexpr int kBMLarge = 128, kBMSmall = 64, kBN = 64, kBK = 32;
 // shared-memory stages of the K loop: up to kStages - 1 steps in flight
 constexpr int kStages = 4;

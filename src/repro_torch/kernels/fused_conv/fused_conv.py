@@ -42,20 +42,24 @@ import torch.nn.functional as F
 
 from repro_torch.core.dtypes import EXEC_DTYPES, torch_dtype
 from repro_torch.core.executor import full_fp32
-from repro_torch.core.program import ConvLevelProg, TileProgram
+from repro_torch.core.program import (
+    CONV_TILE_M,
+    CONV_TILE_N,
+    MAX_LEVELS,
+    ConvLevelProg,
+    TileProgram,
+    card_layout,
+    conv_tile,
+)
 from repro_torch.kernels import build
 
 # int64 descriptor layout shared with csrc/fused_pyramid.cu (kHeader,
-# kPerLevel); the CUDA side rejects a descriptor of any other length
+# kPerLevel); the CUDA side rejects a descriptor of any other length.  The
+# conv tiles, K-splits and scratch capacity come from the planner's
+# card_layout, which the card budget counts too.
 _HEADER = 12
 _PER_LEVEL = 19
-_MAX_LEVELS = 16
 _DTYPE_CODES = {"float32": 0, "bfloat16": 1}
-# the kernel's conv tiles: _TILE_M[tile] pixels (kBMLarge, kBMSmall) x
-# _TILE_N channels (kBN), and its K*K*Cin step (kBK)
-_TILE_M, _TILE_N, _TILE_K = (128, 64), 64, 32
-# scratch values per cell are a multiple of this (16-byte aligned cells)
-_CAP_ALIGN = 8
 
 
 class PyramidKernel(build.CudaKernel):
@@ -243,29 +247,10 @@ def fused_pyramid_kernel(
                    c_tiles, weights_flat, cdt)
 
 
-def _tile_shape(pix: int) -> int:
-    """The conv tile of a level of ``pix`` output pixels per cell, as the
-    descriptor's index into ``_TILE_M``: the large tile, unless it would
-    cover at least 25 % more rows than the small one (a 7 x 7 level
-    fills 49 of 128 rows but 49 of 64)."""
-    large, small = (-(-pix // m) * m for m in _TILE_M)
-    return 1 if 4 * large >= 5 * small else 0
-
-
 def level_tiles(program: TileProgram) -> list[str]:
     """Each conv level's tile as ``"<pixels>x<channels>"``."""
-    return [f"{_TILE_M[_tile_shape(p.out_size ** 2)]}x{_TILE_N}"
+    return [f"{CONV_TILE_M[conv_tile(p.out_size ** 2)]}x{CONV_TILE_N}"
             for p in program.levels]
-
-
-def _splits(tiles: int, kdim: int, grid: int) -> int:
-    """How many ways a level splits its K*K*Cin sum across blocks: enough
-    to give every block of the grid work when the level has fewer conv
-    tiles than blocks (deep layers at batch 1), keeping at least one
-    K-step per split; 1 when the tiles alone fill the grid."""
-    if tiles >= grid:
-        return 1
-    return max(1, min(grid // tiles, -(-kdim // _TILE_K)))
 
 
 def _descriptor(program: TileProgram, relu: bool, end_skip: bool,
@@ -273,49 +258,43 @@ def _descriptor(program: TileProgram, relu: bool, end_skip: bool,
                 ) -> tuple[list[int], int, int]:
     """The int64 launch descriptor (layout in csrc/fused_pyramid.cu), the
     per-cell scratch capacity in compute-dtype values, and the floats of
-    split partial sums the launch needs.  Each level's tile (the last
-    field) sets its tile count, hence its K-split."""
-    if program.q_convs > _MAX_LEVELS:
+    split partial sums the launch needs, all from the program's
+    :func:`~repro_torch.core.program.card_layout` on ``grid`` blocks.
+    Each level's tile (the last field) sets its tile count, hence its
+    K-split."""
+    if program.q_convs > MAX_LEVELS:
         raise ValueError(
-            f"the CUDA kernel takes at most {_MAX_LEVELS} conv levels,"
+            f"the CUDA kernel takes at most {MAX_LEVELS} conv levels,"
             f" got {program.q_convs}"
         )
-    cells = batch * program.alpha ** 2
-    cap = max(
-        max(p.out_size, p.pool_out) ** 2 * p.n_out for p in program.levels
-    )
-    cap = -(-cap // _CAP_ALIGN) * _CAP_ALIGN
+    lay = card_layout(program, batch, grid)
     desc = [
         batch, program.alpha, program.tile0, program.stride0,
         program.padded_input, program.levels[0].n_in, program.q_convs,
-        int(relu), int(end_skip), c_tiles, cap, grid,
+        int(relu), int(end_skip), c_tiles, lay.cap, grid,
     ]
-    w_off = b_off = partial = 0
-    for p, cnt in zip(program.levels, program.level_weight_counts()):
+    w_off = b_off = 0
+    for p, cnt, split, tile in zip(program.levels,
+                                   program.level_weight_counts(),
+                                   lay.splits, lay.tiles):
         pk, ps = p.pool if p.pool is not None else (0, 0)
-        pix = p.out_size ** 2
-        tile = _tile_shape(pix)
-        tiles = cells * -(-pix // _TILE_M[tile]) * -(-p.n_out // _TILE_N)
-        splits = _splits(tiles, p.K * p.K * p.n_in, grid)
-        if splits > 1:
-            partial = max(partial, splits * cells * pix * p.n_out)
         desc += [
             p.K, p.S, p.n_in, p.n_out, p.in_size, p.out_size,
             p.o_base, p.o_step, p.valid,
             pk, ps, p.pool_out if p.pool is not None else 0,
             p.pool_o_base, p.pool_o_step, p.pool_valid,
-            w_off, b_off, splits, tile,
+            w_off, b_off, split, tile,
         ]
         w_off += cnt
         b_off += p.n_out
     assert len(desc) == _HEADER + _PER_LEVEL * program.q_convs
-    if max(3 * cells * cap, partial) >= 2 ** 31:
+    if not lay.within_index_limit():
         raise ValueError(
-            f"the launch needs {3 * cells * cap} scratch values and {partial}"
-            " partial sums; the kernel indexes them in 32 bits: lower the"
-            " batch"
+            f"the launch needs {lay.scratch_vals} scratch values and"
+            f" {lay.partial} partial sums; the kernel indexes them in 32"
+            " bits: lower the batch"
         )
-    return desc, cap, partial
+    return desc, lay.cap, lay.partial
 
 
 def _launch(x_padded, weights, biases, program, relu, end_skip, c_tiles,

@@ -11,9 +11,10 @@ the launch knobs, checks the planning budget, and launches:
 * :func:`fused_pyramid_chain` — chunks a chain into several launches only
   when the budget forces it (or an explicit per-chunk conv cap is given).
 
-The budget is the reference's parity budget
-(:data:`~repro_torch.core.program.VMEM_BUDGET_BYTES`), so every knob and
-every ``BudgetError`` matches the reference's.
+The budget is a :class:`~repro_torch.core.program.Budget`: the card's
+(:data:`~repro_torch.core.program.CARD_BUDGET`) unless the caller passes
+the reference's (:data:`~repro_torch.core.program.REFERENCE_BUDGET`),
+under which every knob and every ``BudgetError`` matches the reference's.
 """
 
 from __future__ import annotations
@@ -24,9 +25,10 @@ import torch.nn.functional as F
 from repro_torch.core.dtypes import canonical_dtype, torch_dtype
 from repro_torch.core.fusion import FusionSpec
 from repro_torch.core.program import (
-    VMEM_BUDGET_BYTES,
+    CARD_BUDGET,
+    Budget,
+    LaunchPlan,
     compile_program,
-    pick_out_region,
     plan_launch,
 )
 from repro_torch.robust.errors import BudgetError, PreflightError
@@ -55,7 +57,7 @@ def fused_pyramid(
     c_tiles: int | None = None,
     relu: bool = True,
     end_skip: bool = True,
-    vmem_budget: int = VMEM_BUDGET_BYTES,
+    budget: Budget = CARD_BUDGET,
     weights_flat: torch.Tensor | None = None,
     compute_dtype: str = "float32",
     plain: bool = False,
@@ -68,7 +70,9 @@ def fused_pyramid(
     :func:`~repro_torch.core.program.plan_launch` picks.  ``streamed`` /
     ``w_slots`` / ``x_slots`` / ``c_tiles`` pin the launch knobs (the
     plan-driven entry used by :mod:`repro_torch.net.runner`); ``None``
-    derives them from the budget exactly as the reference does.
+    derives them from ``budget``: on the card one resident slot, untiled;
+    under the reference's budget exactly as the reference does.  The
+    launch must fit ``budget`` at the batch of ``x``.
     ``weights_flat`` optionally supplies the pre-flattened weights
     (:func:`flatten_weights`); streamed callers holding only the flat form
     may pass ``weights=None``.  ``compute_dtype`` is the value width of every
@@ -83,14 +87,16 @@ def fused_pyramid(
     """
     compute_dtype = canonical_dtype(compute_dtype)
     cdt = torch_dtype(compute_dtype)
+    batch = int(x.shape[0])
     if out_region is None:
         lp = plan_launch(
-            spec, vmem_budget=vmem_budget, compute_dtype=compute_dtype
+            spec, budget, batch=batch, compute_dtype=compute_dtype
         )
         if lp is None:
             raise BudgetError(
-                "no output region fits VMEM; chunk via fused_pyramid_chain",
-                vmem_budget=vmem_budget,
+                f"no output region fits the {budget}; chunk via"
+                " fused_pyramid_chain",
+                **budget.context(),
             )
         out_region = lp.out_region
         if streamed is None:
@@ -102,44 +108,18 @@ def fused_pyramid(
         if x_slots is None:
             x_slots = lp.x_slots
     prog = compile_program(spec, out_region, compute_dtype=compute_dtype)
-    # a caller-pinned x_slots=2 charges the extra landing slot to every
-    # regime, including the resident-vs-streamed decision itself
-    xs_pinned = x_slots if x_slots is not None else 1
-    stream = (
-        prog.vmem_bytes(xs_pinned) > vmem_budget
-        if streamed is None
-        else streamed
+    stream, w_slots, x_slots, c_tiles = budget.launch_knobs(
+        prog, streamed, w_slots, x_slots, c_tiles
     )
-    if stream and (w_slots is None or c_tiles is None):
-        w_slots, c_tiles = prog.resolve_stream_regime(
-            vmem_budget, xs_pinned, w_slots, c_tiles
-        )
-    if not stream:
-        w_slots = 1  # unused by the resident regime
-    if c_tiles is None:
-        c_tiles = 1  # channel tiling is opt-in outside the streamed ladder
-    if x_slots is None:
-        if prog.alpha == 1:
-            x_slots = 1  # no successor cell: nothing to prefetch
-        elif stream:
-            x_slots = (
-                2
-                if prog.vmem_stream_bytes(w_slots, 2, c_tiles) <= vmem_budget
-                else 1
-            )
-        else:
-            x_slots = 2 if prog.vmem_bytes(2, c_tiles) <= vmem_budget else 1
-    vmem = (
-        prog.vmem_stream_bytes(w_slots, x_slots, c_tiles)
-        if stream
-        else prog.vmem_bytes(x_slots, c_tiles)
-    )
-    if vmem > vmem_budget:
+    launch = LaunchPlan(program=prog, streamed=stream, w_slots=w_slots,
+                        x_slots=x_slots, c_tiles=c_tiles)
+    if not budget.fits(launch, batch):
+        need = budget.working_set(launch, batch)
         raise BudgetError(
-            f"working set {vmem} exceeds VMEM"
-            + ("" if stream else "; retry with streamed weights or")
+            f"working set {need} at batch {batch} exceeds the {budget}"
+            + budget.retry_hint(stream)
             + " chunk via fused_pyramid_chain",
-            vmem_bytes=vmem, vmem_budget=vmem_budget,
+            **budget.context(need),
         )
     xp = F.pad(
         x.to(cdt),
@@ -205,14 +185,17 @@ def conv_groups(spec: FusionSpec) -> list[list]:
 def plan_chunks(
     spec: FusionSpec,
     *,
-    vmem_budget: int = VMEM_BUDGET_BYTES,
+    budget: Budget = CARD_BUDGET,
     max_convs_per_chunk: int | None = None,
     compute_dtype: str = "float32",
+    batch: int = 1,
 ) -> list[FusionSpec]:
     """Greedy chunking: grow each chunk conv-group by conv-group until the
     budget (or an explicit conv cap) forces a split.  A chain that fits
     returns a single chunk.  Raises :class:`BudgetError` when even a lone
-    conv group cannot fit the budget."""
+    conv group cannot fit the budget (on the card only past the kernel's
+    limits: a lone group needs no budget there).  ``batch`` is the batch
+    the chunks will launch at, which the card's working set grows with."""
     groups = conv_groups(spec)
     chunks: list[FusionSpec] = []
     size = spec.input_size
@@ -220,10 +203,8 @@ def plan_chunks(
     def fits(levels: list) -> bool:
         sub = FusionSpec(levels=tuple(levels), input_size=size)
         return (
-            pick_out_region(
-                sub, vmem_budget=vmem_budget, compute_dtype=compute_dtype
-            )
-            is not None
+            plan_launch(sub, budget, batch=batch,
+                        compute_dtype=compute_dtype) is not None
         )
 
     cur: list = []
@@ -238,9 +219,10 @@ def plan_chunks(
         if not cur and not fits(g):
             name = g[0].name or f"conv K={g[0].K} {g[0].n_in}->{g[0].n_out}"
             raise BudgetError(
-                f"conv group [{name}] does not fit the {vmem_budget}-byte"
-                " VMEM budget even alone (streamed); chunking cannot help",
-                node=g[0].name, vmem_budget=vmem_budget,
+                f"conv group [{name}] does not fit the {budget} even alone"
+                + budget.refusal(batch)
+                + "; chunking cannot help",
+                node=g[0].name, **budget.context(),
             )
         cur = cur + g
     chunks.append(FusionSpec(levels=tuple(cur), input_size=size))
@@ -256,7 +238,7 @@ def fused_pyramid_chain(
     out_regions: list[int] | None = None,
     relu: bool = True,
     end_skip: bool = True,
-    vmem_budget: int = VMEM_BUDGET_BYTES,
+    budget: Budget = CARD_BUDGET,
     max_convs_per_chunk: int | None = None,
     compute_dtype: str = "float32",
 ):
@@ -268,9 +250,10 @@ def fused_pyramid_chain(
     """
     chunks = plan_chunks(
         spec,
-        vmem_budget=vmem_budget,
+        budget=budget,
         max_convs_per_chunk=max_convs_per_chunk,
         compute_dtype=compute_dtype,
+        batch=int(x.shape[0]),
     )
     if out_regions is not None and len(out_regions) != len(chunks):
         raise PreflightError(
@@ -290,7 +273,7 @@ def fused_pyramid_chain(
             out_region=out_regions[ci] if out_regions is not None else None,
             relu=relu,
             end_skip=end_skip,
-            vmem_budget=vmem_budget,
+            budget=budget,
             compute_dtype=compute_dtype,
         )
         skips.append(skip)

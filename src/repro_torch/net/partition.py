@@ -1,8 +1,12 @@
 """Memory-aware auto-partitioner: where to cut the fusion pyramids.
 
-A copy of the reference package's ``repro.net.partition``: the DP, its
-costs and its tie-breaks are unchanged so the port's plans equal the
-reference's field by field at the same (parity) budget.
+A copy of the reference package's ``repro.net.partition``: the DP and its
+lexicographic order are the reference's.  Every plan is made under a
+:class:`~repro_torch.core.program.Budget`: the card's
+(:data:`~repro_torch.core.program.CARD_BUDGET`) by default, whose launches
+and costs are the H100's, or the reference's TPU budget
+(:data:`~repro_torch.core.program.REFERENCE_BUDGET`), under which the
+port's plans equal the reference's field by field.
 
 USEFUSE fuses hand-picked layer groups; the whole-network claim — reduced
 off-chip communication for CNN deployment — needs the *cut points* chosen by
@@ -16,15 +20,18 @@ that search over the graph IR:
   group* — one conv plus its trailing pools — because a pool executes as its
   conv's epilogue (Fig. 4; ``kernels/fused_conv/ops.conv_groups``).
 * Cost: each candidate pyramid is costed by the tile-program compiler's
-  :func:`~repro_torch.core.program.plan_launch` hook — exact modeled HBM bytes for
-  the launch (reads + writes + weights, re-read per grid cell when the
-  VMEM budget forces the streamed-weight regime) and the DS-1 cycle model as
-  the latency tiebreaker.  A pyramid no launch regime can fit is illegal.
+  :func:`~repro_torch.core.program.plan_launch` hook and
+  :meth:`Budget.cost <repro_torch.core.program.Budget.cost>` — exact
+  modeled HBM bytes for the launch (reads + writes + weights; under the
+  reference's model re-read per grid cell when its VMEM forces the
+  streamed-weight regime), then a tie-break: the roofline time at the
+  card's rates, or the reference's DS-1 cycle model.  A pyramid no launch
+  can fit is illegal.
 * Search: per segment, a dynamic program over conv-group cut positions
-  minimizing summed (HBM bytes, modeled cycles) lexicographically — optimal
-  over the exponential cut space in O(G^2) cost evaluations
-  (:func:`partition_segment`; the reference's tests hold it against a
-  brute-force oracle).
+  minimizing the summed costs lexicographically — optimal over the
+  exponential cut space in O(G^2) cost evaluations
+  (:func:`partition_segment`; :func:`brute_force_segment` is its test
+  oracle).
 
 Baselines built from the same machinery: :func:`layerwise_partition` (every
 conv group its own launch — the unfused dataflow) and
@@ -34,6 +41,7 @@ LeNet/AlexNet, VGG blocks 1-2, ResNet-18 per-block conv pairs).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import itertools
 from dataclasses import dataclass
@@ -41,7 +49,12 @@ from typing import NamedTuple
 
 from repro_torch.core.dtypes import canonical_dtype
 from repro_torch.core.fusion import FusionSpec
-from repro_torch.core.program import VMEM_BUDGET_BYTES, LaunchPlan, plan_launch
+from repro_torch.core.program import (
+    CARD_BUDGET,
+    Budget,
+    LaunchPlan,
+    plan_launch,
+)
 from repro_torch.kernels.fused_conv.ops import conv_groups
 from repro_torch.obs.trace import get_tracer
 from repro_torch.robust.errors import BudgetError
@@ -83,7 +96,7 @@ class PartitionPlan:
 
     graph: Graph
     pyramids: tuple[PyramidPlan, ...]
-    vmem_budget: int
+    budget: Budget
     batch: int
     # the compute dtype every pyramid was planned (and will launch) at; the
     # runner casts params/activations to match (DESIGN.md §11)
@@ -154,7 +167,7 @@ def _group_specs(segment: Segment) -> tuple[list[list], list[int], list[int]]:
 
 def _span_launch(
     groups: list[list], bound_sizes: list[int], i: int, j: int,
-    vmem_budget: int, prefer_region: str = "largest",
+    budget: Budget, prefer_region: str = "largest",
     compute_dtype: str = "float32", batch: int = 1,
 ) -> LaunchPlan | None:
     """Launch plan (or None) for one pyramid covering groups [i, j),
@@ -163,7 +176,7 @@ def _span_launch(
     levels = tuple(itertools.chain.from_iterable(groups[i:j]))
     spec = FusionSpec(levels=levels, input_size=bound_sizes[i])
     return plan_launch(
-        spec, vmem_budget=vmem_budget, batch=batch,
+        spec, budget, batch=batch,
         prefer_region=prefer_region, compute_dtype=compute_dtype,
     )
 
@@ -171,14 +184,15 @@ def _span_launch(
 def partition_segment(
     segment: Segment,
     *,
-    vmem_budget: int = VMEM_BUDGET_BYTES,
+    budget: Budget = CARD_BUDGET,
     batch: int = 1,
     max_convs: int | None = None,
     prefer_region: str = "largest",
     compute_dtype: str = "float32",
 ) -> list[LaunchPlan]:
     """Optimal cuts of one segment: DP over conv-group boundaries minimizing
-    (sum HBM bytes, sum modeled cycles) lexicographically.
+    the summed :meth:`Budget.cost <repro_torch.core.program.Budget.cost>`
+    (HBM bytes, then the budget model's tie-break) lexicographically.
 
     The DP is dtype-aware end to end: each candidate span is costed (and its
     regime laddered) at ``compute_dtype``, so bf16's halved bytes can both
@@ -199,17 +213,17 @@ def partition_segment(
             if max_convs is not None and convs > max_convs:
                 cost[(i, j)] = INFEASIBLE
                 continue
-            lp = _span_launch(groups, bound_sizes, i, j, vmem_budget,
+            lp = _span_launch(groups, bound_sizes, i, j, budget,
                               prefer_region, compute_dtype, batch)
             if lp is None:
                 cost[(i, j)] = INFEASIBLE
                 continue
             launches[(i, j)] = lp
-            cost[(i, j)] = (
-                float(lp.hbm_bytes(batch)), float(lp.modeled_cycles(batch))
-            )
+            cost[(i, j)] = budget.cost(lp, batch)
 
-    best: list[tuple[float, float]] = [(0.0, 0.0)] + [INFEASIBLE] * n
+    # integer zeros: the card's costs are exact integers (Budget.cost), the
+    # reference's floats, as its own
+    best: list[tuple] = [(0, 0)] + [INFEASIBLE] * n
     back: list[int] = [0] * (n + 1)
     for j in range(1, n + 1):
         for i in range(j):
@@ -225,8 +239,9 @@ def partition_segment(
         )
         raise BudgetError(
             f"conv group [{bad[0].name or bad[0]}] fits no launch regime under"
-            f" the {vmem_budget}-byte VMEM budget; no partition can run it",
-            node=bad[0].name, vmem_budget=vmem_budget,
+            f" the {budget}" + budget.refusal(batch)
+            + "; no partition can run it",
+            node=bad[0].name, **budget.context(),
         )
     cuts, j = [], n
     while j > 0:
@@ -234,6 +249,41 @@ def partition_segment(
         cuts.append(launches[(i, j)])
         j = i
     return list(reversed(cuts))
+
+
+def brute_force_segment(
+    segment: Segment,
+    *,
+    budget: Budget = CARD_BUDGET,
+    batch: int = 1,
+    compute_dtype: str = "float32",
+) -> tuple:
+    """Exhaustive minimum over all 2^(G-1) cut sets — the DP's test
+    oracle: the least summed :meth:`Budget.cost
+    <repro_torch.core.program.Budget.cost>` of any partition of the
+    segment (``INFEASIBLE`` when none fits).  Each span's launch is planned
+    once and reused across the cut sets that contain it."""
+    groups, bound_sizes, _ = _group_specs(segment)
+    n = len(groups)
+
+    @functools.cache
+    def span_cost(i: int, j: int) -> tuple | None:
+        lp = _span_launch(groups, bound_sizes, i, j, budget,
+                          compute_dtype=compute_dtype, batch=batch)
+        return None if lp is None else budget.cost(lp, batch)
+
+    best = INFEASIBLE
+    for mask in range(1 << (n - 1)):
+        bounds = [0] + [k + 1 for k in range(n - 1) if mask >> k & 1] + [n]
+        total = (0, 0)
+        for i, j in zip(bounds, bounds[1:]):
+            c = span_cost(i, j)
+            if c is None:
+                break
+            total = (total[0] + c[0], total[1] + c[1])
+        else:
+            best = min(best, total)
+    return best
 
 
 # ---------------------------------------------------------------------------
@@ -259,11 +309,11 @@ def replan_pyramid(
     graph: Graph,
     pyr: PyramidPlan,
     *,
-    vmem_budget: int,
+    budget: Budget = CARD_BUDGET,
     batch: int = 1,
     compute_dtype: str = "float32",
 ) -> list[PyramidPlan]:
-    """Re-cut one planned pyramid under a (smaller) VMEM budget.
+    """Re-cut one planned pyramid under a (smaller) budget.
 
     The degradation ladder's replan rung (DESIGN.md §13): when a launch's
     working set no longer fits at run time, its covered chain is rebuilt as
@@ -281,8 +331,7 @@ def replan_pyramid(
         relu=pyr.relu,
     )
     launches = partition_segment(
-        seg, vmem_budget=vmem_budget, batch=batch,
-        compute_dtype=compute_dtype,
+        seg, budget=budget, batch=batch, compute_dtype=compute_dtype,
     )
     return _segment_pyramids(seg, launches)
 
@@ -290,7 +339,7 @@ def replan_pyramid(
 @functools.lru_cache(maxsize=128)
 def _auto_partition_cached(
     graph: Graph,
-    vmem_budget: int,
+    budget: Budget,
     batch: int,
     max_convs: int | None,
     prefer_region: str,
@@ -299,12 +348,12 @@ def _auto_partition_cached(
     pyramids: list[PyramidPlan] = []
     for seg in fusable_segments(graph):
         launches = partition_segment(
-            seg, vmem_budget=vmem_budget, batch=batch, max_convs=max_convs,
+            seg, budget=budget, batch=batch, max_convs=max_convs,
             prefer_region=prefer_region, compute_dtype=compute_dtype,
         )
         pyramids.extend(_segment_pyramids(seg, launches))
     return PartitionPlan(
-        graph=graph, pyramids=tuple(pyramids), vmem_budget=vmem_budget,
+        graph=graph, pyramids=tuple(pyramids), budget=budget,
         batch=batch, compute_dtype=compute_dtype,
     )
 
@@ -312,20 +361,23 @@ def _auto_partition_cached(
 def auto_partition(
     graph: Graph,
     *,
-    vmem_budget: int = VMEM_BUDGET_BYTES,
+    budget: Budget = CARD_BUDGET,
     batch: int = 1,
     max_convs: int | None = None,
     prefer_region: str = "largest",
     compute_dtype: str | None = None,
 ) -> PartitionPlan:
-    """Machine-chosen fusion boundaries for the whole network.
+    """Machine-chosen fusion boundaries for the whole network, planned
+    under ``budget``: the card's by default; pass
+    :data:`~repro_torch.core.program.REFERENCE_BUDGET` for the reference's
+    plans.
     ``prefer_region="smallest"`` trades grid overhead for maximal tile grids
     (finest END-skip granularity) — the paper's smallest-tile preference.
     ``compute_dtype`` overrides the graph's default value width
     (``None`` = ``graph.compute_dtype``); the f32 and bf16 plans for the
     same graph are distinct cache entries.
 
-    Memoized on (graph structure, VMEM budget, batch, depth cap, region
+    Memoized on (graph structure, budget, batch, depth cap, region
     preference, compute dtype): the DP is pure over static shapes, and
     ``run_model`` / the benchmark loop re-request identical plans every call
     — they hit the cache and reuse the same :class:`PartitionPlan`
@@ -336,7 +388,7 @@ def auto_partition(
     )
     before = _auto_partition_cached.cache_info()
     plan = _auto_partition_cached(
-        graph, vmem_budget, batch, max_convs, prefer_region, cdt
+        graph, budget, batch, max_convs, prefer_region, cdt
     )
     after = _auto_partition_cached.cache_info()
     hit = after.misses == before.misses
@@ -357,7 +409,8 @@ def auto_partition(
             cache="hit" if hit else "miss",
             batch=batch,
             compute_dtype=cdt,
-            vmem_budget=vmem_budget,
+            budget_model=budget.model,
+            budget_bytes=budget.nbytes,
             launches=plan.n_launches(),
             hbm_bytes=plan.hbm_bytes(),
             modeled_cycles=plan.modeled_cycles(),
@@ -416,15 +469,20 @@ def clear_partition_cache() -> None:
         tracer.record_event("partition_cache_clear")
 
 
-def min_vmem_budget(graph: Graph, *, compute_dtype: str | None = None) -> int:
-    """Smallest VMEM budget under which every conv group of the graph still
-    has some launch regime — the floor below which no partition exists
-    (dtype-aware: a bf16 graph's floor is roughly half the f32 one).
-    Partitioning under this budget forces minimal output regions (maximal
-    tile grids), which is also how the example script provokes the END
-    cascade at reduced scale."""
-    from repro_torch.core.program import compile_program
-
+def min_budget(
+    graph: Graph, *, budget: Budget = CARD_BUDGET,
+    compute_dtype: str | None = None,
+) -> Budget:
+    """Smallest budget of ``budget``'s model under which every conv group of
+    the graph still has a launch (the largest of its groups'
+    :meth:`Budget.group_floor <repro_torch.core.program.Budget.group_floor>`)
+    — the floor below which no partition exists.  On the card a lone conv group fits whatever the budget, so
+    the floor is 0 bytes, under which every plan is layerwise.  Under the
+    reference's model it is the reference's ``min_vmem_budget`` (dtype-aware:
+    a bf16 graph's floor is roughly half the f32 one); partitioning under
+    it forces minimal output regions (maximal tile grids), which is also
+    how the reference's example script provokes the END cascade at reduced
+    scale."""
     cdt = canonical_dtype(
         graph.compute_dtype if compute_dtype is None else compute_dtype
     )
@@ -433,38 +491,18 @@ def min_vmem_budget(graph: Graph, *, compute_dtype: str | None = None) -> int:
         groups, bound_sizes, _ = _group_specs(seg)
         for i in range(len(groups)):
             spec = FusionSpec(levels=tuple(groups[i]), input_size=bound_sizes[i])
-            out_size = spec.feature_sizes()[-1]
-
-            def _cheapest_regime(prog) -> int:
-                # the floor now includes the channel-tiled streamed rung:
-                # a finely sliced last level can undercut even the blocking
-                # single-slot regime when one level's weights dominate
-                tiled = min(
-                    (
-                        prog.vmem_stream_bytes(2, 1, ct)
-                        for ct in prog.c_tile_options()
-                    ),
-                    default=prog.vmem_stream_bytes(),
-                )
-                return min(prog.vmem_bytes(), prog.vmem_stream_bytes(), tiled)
-
-            cheapest = min(
-                _cheapest_regime(compile_program(spec, r, compute_dtype=cdt))
-                for r in range(1, out_size + 1)
-                if out_size % r == 0
-            )
-            worst = max(worst, cheapest)
-    return worst
+            worst = max(worst, budget.group_floor(spec, cdt))
+    return dataclasses.replace(budget, nbytes=worst)
 
 
 def layerwise_partition(
-    graph: Graph, *, vmem_budget: int = VMEM_BUDGET_BYTES, batch: int = 1,
+    graph: Graph, *, budget: Budget = CARD_BUDGET, batch: int = 1,
     compute_dtype: str | None = None,
 ) -> PartitionPlan:
     """The unfused baseline: every conv group is its own launch, every
     intermediate map round-trips HBM."""
     return auto_partition(
-        graph, vmem_budget=vmem_budget, batch=batch, max_convs=1,
+        graph, budget=budget, batch=batch, max_convs=1,
         compute_dtype=compute_dtype,
     )
 
@@ -475,7 +513,7 @@ _PAPER_HEAD_CONVS = {"lenet": 2, "alexnet": 2, "vgg16": 4}
 
 
 def paper_partition(
-    graph: Graph, *, vmem_budget: int = VMEM_BUDGET_BYTES, batch: int = 1,
+    graph: Graph, *, budget: Budget = CARD_BUDGET, batch: int = 1,
     compute_dtype: str | None = None,
 ) -> PartitionPlan:
     """The paper's hand-picked fusion choices, expressed as a partition:
@@ -504,17 +542,17 @@ def paper_partition(
             spans = [(k, k + 1) for k in range(len(groups))]
         launches = []
         for i, j in spans:
-            lp = _span_launch(groups, bound_sizes, i, j, vmem_budget,
-                              compute_dtype=cdt)
+            lp = _span_launch(groups, bound_sizes, i, j, budget,
+                              compute_dtype=cdt, batch=batch)
             if lp is None:
                 raise BudgetError(
                     f"paper fusion group {i}:{j} of segment {si} does not fit"
-                    f" the {vmem_budget}-byte VMEM budget",
-                    vmem_budget=vmem_budget,
+                    f" the {budget}",
+                    **budget.context(),
                 )
             launches.append(lp)
         pyramids.extend(_segment_pyramids(seg, launches))
     return PartitionPlan(
-        graph=graph, pyramids=tuple(pyramids), vmem_budget=vmem_budget,
+        graph=graph, pyramids=tuple(pyramids), budget=budget,
         batch=batch, compute_dtype=cdt,
     )

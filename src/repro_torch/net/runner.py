@@ -244,7 +244,7 @@ def _forward(
                     c_tiles=pyr.launch.c_tiles,
                     relu=pyr.relu,
                     end_skip=end_skip,
-                    vmem_budget=plan.vmem_budget,
+                    budget=plan.budget,
                     weights_flat=flat,
                     compute_dtype=cdt,
                 )
@@ -290,7 +290,7 @@ def _run_network_traced(x, params, tracer, *, plan, end_skip, cdt):
         timer = SpanTimer(device=x_in.device).start()
         y, skip = call()
         dur_ms = timer.stop_ms()
-        d = pyr.launch.describe(batch, plan.vmem_budget)
+        d = pyr.launch.describe(batch, plan.budget)
         tracer.record_span(LaunchSpan(
             name=pyr.name,
             model=model,

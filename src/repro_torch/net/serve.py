@@ -30,7 +30,7 @@ turns the runner into a service:
   unpadded under the same plan (bit for bit on the CPU; on the card cuDNN
   and cuBLAS may pick other algorithms at another batch size).
 * **Plan + compile cache** — each bucket executes through one cache entry
-  keyed ``(graph, vmem budget, bucket, dtype)``: the bucket-batch
+  keyed ``(graph, budget, bucket, dtype)``: the bucket-batch
   ``auto_partition`` plan, its prepared params, its modeled cycles and its
   modeled staging cycles.  All requests of a bucket share one padded shape
   and the entry's params, so the runner's compiled forward (a captured CUDA
@@ -92,7 +92,7 @@ from repro_torch.core.cycle_model import (
     serve_stream_cycles,
 )
 from repro_torch.core.dtypes import DTYPE_BYTES, canonical_dtype
-from repro_torch.core.program import VMEM_BUDGET_BYTES
+from repro_torch.core.program import CARD_BUDGET, REFERENCE_BUDGET, Budget
 from repro_torch.obs.stats import percentile
 from repro_torch.obs.trace import get_tracer
 from repro_torch.robust.breaker import HALF_OPEN, CircuitBreaker
@@ -155,7 +155,11 @@ class ServeConfig:
 
     ``buckets`` are the admissible padded batch sizes (ascending and
     unique).  ``plan_cache_size`` bounds the engine's plan+params LRU.
-    ``compute_dtype`` ``None`` means the graph's own default.  ``guarded``
+    ``compute_dtype`` ``None`` means the graph's own default.  ``budget``
+    is what every bucket's plan is made under: the card's
+    (:data:`~repro_torch.core.program.CARD_BUDGET`) unless the reference's
+    TPU budget (:data:`~repro_torch.core.program.REFERENCE_BUDGET`) is
+    asked for, as the parity tests do.  ``guarded``
     runs every bucket under the degradation ladder; ``require_finite``
     controls the admission NaN/Inf scan (shape checks always run).
     ``max_queue`` bounds queued requests — an overfull queue rejects at
@@ -181,7 +185,7 @@ class ServeConfig:
     buckets: tuple[int, ...] = (1, 2, 4, 8)
     plan_cache_size: int = 16
     compute_dtype: str | None = None
-    vmem_budget: int = VMEM_BUDGET_BYTES
+    budget: Budget = CARD_BUDGET
     prefer_region: str = "largest"
     end_skip: bool = True
     guarded: bool = False
@@ -503,7 +507,7 @@ class ServingEngine:
     def _key(self, bucket: int) -> tuple:
         # the memo key mirrors auto_partition's: identical graph structure,
         # budget, bucket batch, and dtype mean identical plans
-        return (self.graph, self.config.vmem_budget, bucket,
+        return (self.graph, self.config.budget, bucket,
                 self.compute_dtype)
 
     def _launch_name(self, bucket: int) -> str:
@@ -521,7 +525,7 @@ class ServingEngine:
                 self.cache_counters["misses"] += 1
                 plan = auto_partition(
                     self.graph,
-                    vmem_budget=self.config.vmem_budget,
+                    budget=self.config.budget,
                     batch=bucket,
                     prefer_region=self.config.prefer_region,
                     compute_dtype=self.compute_dtype,
@@ -1201,6 +1205,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="where the engine runs (default cuda: the CUDA"
                     " kernels; cpu runs their plain versions)")
+    ap.add_argument("--budget", choices=("card", "reference"),
+                    default="card",
+                    help="plan every bucket under the card's budget"
+                    " (default) or the reference's TPU budget, kept for"
+                    " parity")
     args = ap.parse_args(argv)
 
     kwargs = {"input_size": args.input} if args.input else {}
@@ -1222,6 +1231,7 @@ def main(argv=None) -> int:
         breaker_cooldown_s=args.breaker_cooldown,
         watchdog_factor=watchdog,
         output_sentinel=sentinel,
+        budget=CARD_BUDGET if args.budget == "card" else REFERENCE_BUDGET,
     )
     device = resolve_device(
         None if args.device == "cuda" else args.device

@@ -1,8 +1,9 @@
 """``python -m repro_torch.obs.explain`` — show what the planner decided and why.
 
 Prints the auto-partition of a zoo model as a per-launch table (covered
-nodes, Q, grid, regime, plan knobs, modeled HBM/VMEM bytes with budget
-headroom, modeled cycles), and optionally:
+nodes, Q, grid, regime, plan knobs, modeled HBM bytes, the working set
+under the plan's budget with its headroom, modeled cycles), and
+optionally:
 
 * ``--trace out.json`` — export a Chrome-trace / Perfetto JSON of every
   launch's modeled fill/steady/drain DMA-vs-MXU timeline
@@ -20,7 +21,10 @@ headroom, modeled cycles), and optionally:
 ``--run`` and ``--guard`` execute on ``--device`` (default ``cuda``: the
 CUDA kernels; it fails when there is no card), at the model's full input
 size unless ``--input-size`` says otherwise; the plan table alone needs no
-device.  Examples::
+device.  The plan is made under the card's budget
+(:data:`~repro_torch.core.program.CARD_BUDGET`); ``--budget reference``
+asks for the reference's TPU budget, whose table equals the reference's
+``explain``, and ``--budget-bytes`` resizes either.  Examples::
 
     PYTHONPATH=src python -m repro_torch.obs.explain --model vgg16
     PYTHONPATH=src python -m repro_torch.obs.explain --model resnet18 \\
@@ -41,16 +45,19 @@ def _fmt_bytes(n: int) -> str:
     return f"{n / 1024:,.0f}K" if n < 32 * 1024 * 1024 else f"{n / 2**20:,.1f}M"
 
 
-def plan_table(plan, vmem_budget: int, out=print) -> None:
+def plan_table(plan, budget, out=print) -> None:
     """Render a PartitionPlan as one row per launch (the tabular twin of the
-    trace's span schema)."""
+    trace's span schema), with each launch's working set under ``budget``
+    (a :class:`~repro_torch.core.program.Budget`) in the ``vmem`` column
+    under the reference's model and the ``card`` column on the card."""
+    ws = budget.label
     out(
         f"{'launch':<26} {'nodes':>5} {'Q':>2} {'grid':>6} {'region':>6} "
-        f"{'regime':<16} {'x/w/c':>6} {'hbm':>9} {'vmem':>9} "
+        f"{'regime':<16} {'x/w/c':>6} {'hbm':>9} {ws:>9} "
         f"{'headroom':>9} {'cycles':>10} {'us':>9}"
     )
     for p in plan.pyramids:
-        d = p.launch.describe(plan.batch, vmem_budget)
+        d = p.launch.describe(plan.batch, budget)
         out(
             f"{p.name:<26} {len(p.node_names):>5} {d['q_convs']:>2} "
             f"{d['alpha']}x{d['alpha']:<4} {d['out_region']:>6} "
@@ -188,7 +195,9 @@ def _inputs(graph, plan, batch: int, device):
 
 
 def main(argv: list[str] | None = None) -> int:
-    from repro_torch.core.program import VMEM_BUDGET_BYTES
+    import dataclasses
+
+    from repro_torch.core.program import CARD_BUDGET, REFERENCE_BUDGET
     from repro_torch.net.graph import MODELS
     from repro_torch.net.partition import auto_partition, partition_cache_info
 
@@ -203,7 +212,12 @@ def main(argv: list[str] | None = None) -> int:
                     help="spatial input size (default: the model's full "
                          "size, 224 for VGG-16 and ResNet-18)")
     ap.add_argument("--batch", type=int, default=1)
-    ap.add_argument("--vmem-budget", type=int, default=VMEM_BUDGET_BYTES)
+    ap.add_argument("--budget", choices=("card", "reference"),
+                    default="card",
+                    help="plan under the card's budget (default) or the "
+                         "reference's TPU budget, kept for parity")
+    ap.add_argument("--budget-bytes", type=int, default=None,
+                    help="resize the budget (default: its own size)")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="write a Perfetto/chrome://tracing JSON of the "
                          "modeled (and, with --run, measured) timelines")
@@ -235,15 +249,17 @@ def main(argv: list[str] | None = None) -> int:
         kwargs["input_size"] = args.input_size
     graph = MODELS[args.model](**kwargs)
 
-    plan = auto_partition(
-        graph, batch=args.batch, vmem_budget=args.vmem_budget
-    )
+    budget = CARD_BUDGET if args.budget == "card" else REFERENCE_BUDGET
+    if args.budget_bytes is not None:
+        budget = dataclasses.replace(budget, nbytes=args.budget_bytes)
+    plan = auto_partition(graph, batch=args.batch, budget=budget)
     print(
         f"{graph.name}: input {graph.input_size}x{graph.input_size}, "
         f"batch {args.batch}, dtype {plan.compute_dtype}, "
-        f"VMEM budget {_fmt_bytes(args.vmem_budget)}"
+        f"{budget.label} budget"
+        f" {_fmt_bytes(budget.nbytes)}"
     )
-    plan_table(plan, args.vmem_budget)
+    plan_table(plan, budget)
     info = partition_cache_info()
     print(
         f"partition cache: {info.hits} hits / {info.misses} misses "

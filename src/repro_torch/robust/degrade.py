@@ -143,7 +143,7 @@ def _reference_walk(x_in, pyr, graph, params, tdt, magnitude_limit=None):
     return y, first_bad
 
 
-def _run_subplan(x_in, subs, params, graph, cdt, *, end_skip, vmem_budget):
+def _run_subplan(x_in, subs, params, graph, cdt, *, end_skip, budget):
     """Execute a replanned pyramid chain: each sub-pyramid as its own fused
     launch, per-level weight tensors (the pre-flattened arrays belong to the
     original plan's pyramids, not these)."""
@@ -165,7 +165,7 @@ def _run_subplan(x_in, subs, params, graph, cdt, *, end_skip, vmem_budget):
             c_tiles=sp.launch.c_tiles,
             relu=sp.relu,
             end_skip=end_skip,
-            vmem_budget=vmem_budget,
+            budget=budget,
             weights_flat=None,
             compute_dtype=cdt,
         )
@@ -258,7 +258,7 @@ def run_network_guarded(
 
     # the effective budget a launch must fit at run time: the plan's own
     # budget scaled by any injected squeeze
-    effective_budget = int(plan.vmem_budget * injector.vmem_factor)
+    effective_budget = plan.budget.scaled(injector.vmem_factor)
 
     def reference_rung(pyr, x_in, reason, detail=None):
         y, bad_level = _reference_walk(
@@ -288,34 +288,34 @@ def run_network_guarded(
             try:
                 try:
                     subs = replan_pyramid(
-                        graph, pyr, vmem_budget=budget, batch=batch,
+                        graph, pyr, budget=budget, batch=batch,
                         compute_dtype=cdt,
                     )
                 except ValueError as e:  # no cut fits this budget
                     raise BudgetError(str(e), launch=pyr.name) from e
                 bad = [sp.name for sp in subs
-                       if sp.launch.vmem_bytes() > budget]
+                       if not budget.fits(sp.launch, batch)]
                 if bad:
                     raise BudgetError(
-                        f"replan of {pyr.name} still exceeds"
-                        f" {budget} bytes", launch=bad[0],
+                        f"replan of {pyr.name} still exceeds the"
+                        f" {budget}", launch=bad[0],
                     )
                 y, sub_skips = _run_subplan(
                     x_in, subs, params, graph, cdt, end_skip=end_skip,
-                    vmem_budget=budget,
+                    budget=budget,
                 )
                 record(FallbackEvent(
                     launch=pyr.name, rung="replan", reason=reason,
                     detail={
                         "attempt": attempt + 1,
-                        "budget": budget,
+                        "budget": budget.nbytes,
                         "sub_launches": [sp.name for sp in subs],
                         "sub_skip_fractions": _skip_fracs(sub_skips),
                     },
                 ))
                 return y, _zero_skip(batch, pyr.q_convs, x_in.device)
             except BudgetError:
-                budget = int(budget * cfg.budget_shrink)
+                budget = budget.scaled(cfg.budget_shrink)
         return reference_rung(
             pyr, x_in, f"replan exhausted after {cfg.max_replans} attempts",
             detail={"original_reason": reason},
@@ -325,13 +325,12 @@ def run_network_guarded(
         # -- plan stage: injected faults + the run-time budget check -------
         try:
             injector.fire("plan", pyr.name)
-            vmem = pyr.launch.vmem_bytes()
-            if vmem > effective_budget:
+            if not effective_budget.fits(pyr.launch, batch):
+                need = effective_budget.working_set(pyr.launch, batch)
                 raise BudgetError(
-                    f"launch {pyr.name} needs {vmem} bytes,"
-                    f" {effective_budget} available",
-                    launch=pyr.name, vmem_bytes=vmem,
-                    vmem_budget=effective_budget,
+                    f"launch {pyr.name} needs {need} bytes under the"
+                    f" {effective_budget}",
+                    launch=pyr.name, **effective_budget.context(need),
                 )
         except BudgetError as e:
             return replan_rung(pyr, x_in, str(e))

@@ -18,11 +18,12 @@ node or launch:
   (``EXEC_DTYPES``: int8 is modeled-only and must fail here);
 * **numerics** — all params finite (:class:`NumericError` listing the
   poisoned nodes);
-* **budget** — every planned launch's modeled working set fits the plan's
-  budget (:class:`BudgetError` naming the launch; the degradation ladder
-  answers this rung by replanning).  The budget is the plan's abstract
-  parity budget (:data:`~repro_torch.core.program.VMEM_BUDGET_BYTES` by
-  default), not a Hopper limit.
+* **budget** — every planned launch fits the plan's budget at the
+  request's batch (:class:`BudgetError` naming the launch and the budget's
+  model; the degradation ladder answers this rung by replanning).  The
+  budget is the plan's own: the card's
+  (:data:`~repro_torch.core.program.CARD_BUDGET`) unless the plan was made
+  under the reference's TPU budget.
 
 The finiteness checks run on the params' device and come to the host in
 one copy per device.
@@ -259,18 +260,18 @@ def nonfinite_param_nodes(params) -> list[str]:
     return [key for key in params if key in bad]
 
 
-def _check_budget(plan, vmem_budget: int) -> None:
+def _check_budget(plan, budget, batch: int) -> None:
     over = [
-        (p.name, p.launch.vmem_bytes())
+        (p.name, budget.working_set(p.launch, batch))
         for p in plan.pyramids
-        if p.launch.vmem_bytes() > vmem_budget
+        if not budget.fits(p.launch, batch)
     ]
     if over:
-        name, vmem = over[0]
+        name, need = over[0]
         raise BudgetError(
-            f"{len(over)} planned launch(es) exceed the {vmem_budget}-byte"
-            f" VMEM budget; first: {name} needs {vmem} bytes",
-            launch=name, vmem_bytes=vmem, vmem_budget=vmem_budget,
+            f"{len(over)} planned launch(es) exceed the {budget}"
+            f" at batch {batch}; first: {name} needs {need} bytes",
+            launch=name, **budget.context(need),
         )
 
 
@@ -280,7 +281,7 @@ def preflight(
     *,
     plan,
     dtype: str | None = None,
-    vmem_budget: int | None = None,
+    budget=None,
     check_budget: bool = True,
 ) -> str:
     """Validate a ``run_network`` request end to end; returns the resolved
@@ -289,7 +290,8 @@ def preflight(
     Raises :class:`PreflightError` on structural/dtype problems,
     :class:`NumericError` (with ``context['nodes']``) on non-finite params,
     and :class:`BudgetError` when a planned launch no longer fits
-    ``vmem_budget`` (default: the plan's own budget).  The checks run in
+    ``budget`` (a :class:`~repro_torch.core.program.Budget`; default: the
+    plan's own) at the batch of ``x``.  The checks run in
     that order so the most actionable error surfaces first.
     """
     cdt = _resolve_dtype(plan, dtype)
@@ -304,7 +306,6 @@ def preflight(
             nodes=sorted(bad),
         )
     if check_budget:
-        _check_budget(
-            plan, plan.vmem_budget if vmem_budget is None else vmem_budget
-        )
+        _check_budget(plan, plan.budget if budget is None else budget,
+                      int(x.shape[0]))
     return cdt

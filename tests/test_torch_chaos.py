@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 from repro.net import graph as jgraph  # noqa: E402
 from repro.net import runner as jrunner  # noqa: E402
 from repro.robust import breaker as jbreaker  # noqa: E402
+from repro_torch.core.program import REFERENCE_BUDGET  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.net.graph import MODELS  # noqa: E402
 from repro_torch.net.partition import auto_partition  # noqa: E402
@@ -62,7 +63,7 @@ def _setup(model):
         {k: (np.asarray(w), np.asarray(b)) for k, (w, b) in jp.items()},
         device="cpu",
     )
-    plan = auto_partition(g, batch=shape[0])
+    plan = auto_partition(g, batch=shape[0], budget=REFERENCE_BUDGET)
     prepped = prepare_network_params(plan, params)
     return g, torch.from_numpy(x), params, plan, prepped, ref
 
@@ -177,7 +178,7 @@ class TestBudgetSqueeze:
         assert rep.fallback_counts() == {"replan": 1}
         ev = rep.events[0]
         assert len(ev.detail["sub_launches"]) >= 2  # tighter cuts: a chain
-        assert ev.detail["budget"] <= int(plan.vmem_budget * SQUEEZE_GENTLE)
+        assert ev.detail["budget"] <= int(plan.budget.nbytes * SQUEEZE_GENTLE)
         assert set(ev.detail["sub_skip_fractions"]) == set(
             ev.detail["sub_launches"])
 
@@ -200,8 +201,8 @@ class TestBudgetSqueeze:
         vmems = sorted(p.launch.vmem_bytes() for p in plan.pyramids)
         below = [v for v in vmems if v < vmems[-1]]
         target = (vmems[-1] + (below[-1] if below else 0)) // 2
-        factor = target / plan.vmem_budget
-        effective = int(plan.vmem_budget * factor)
+        factor = target / plan.budget.nbytes
+        effective = int(plan.budget.nbytes * factor)
         n_over = sum(1 for v in vmems if v > effective)
         assert 1 <= n_over < len(vmems)
         with guarding(GuardConfig(), source_params=params) as guard:

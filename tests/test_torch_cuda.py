@@ -24,6 +24,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.fused_conv import fused_conv as fc  # noqa: E402
 from repro_torch.kernels.online_sop import online_sop as tos  # noqa: E402
 from repro_torch.net.graph import MODELS  # noqa: E402
+from repro_torch.core.program import REFERENCE_BUDGET  # noqa: E402
 from repro_torch.net.partition import auto_partition  # noqa: E402
 from repro_torch.obs import tracing  # noqa: E402
 from repro_torch.robust import (  # noqa: E402
@@ -441,11 +442,12 @@ def test_sop_end_kernel_contract(cuda):
 
 
 def _vgg_b1(cuda):
-    """VGG-16 at 32 x 32, batch 1: 5 launches, one of them channel-tiled,
-    so a replay runs kernels A and B."""
+    """VGG-16 at 32 x 32, batch 1, planned under the reference's TPU budget
+    (kernel B's only route): 5 launches, one of them channel-tiled, so a
+    replay runs kernels A and B."""
     graph = MODELS["vgg16"](input_size=32, num_classes=10)
     master = init_network_params(graph, seed=0, device=cuda)
-    plan = auto_partition(graph, batch=1)
+    plan = auto_partition(graph, batch=1, budget=REFERENCE_BUDGET)
     assert any(p.launch.c_tiles > 1 for p in plan.pyramids)
     assert any(p.launch.c_tiles == 1 for p in plan.pyramids)
     x = torch.randn((1, 32, 32, 3), device=cuda,

@@ -4,6 +4,8 @@ through the kernel's plain PyTorch version) against the reference's
 paper plans, with the reference's own initialised params carried across as
 numpy arrays."""
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -13,16 +15,19 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from repro.net import graph as jgraph  # noqa: E402
 from repro.net import runner as jrunner  # noqa: E402
+from repro_torch.core.program import REFERENCE_BUDGET  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.net import graph as tgraph  # noqa: E402
 from repro_torch.net import partition as tpart  # noqa: E402
 from repro_torch.net import runner as trunner  # noqa: E402
 
 SIZES = {"lenet": 32, "alexnet": 67, "vgg16": 32, "resnet18": 32}
+# the reference's plans: the port's planners under the reference's budget
 PLANS = {
-    "auto": tpart.auto_partition,
-    "layerwise": tpart.layerwise_partition,
-    "paper": tpart.paper_partition,
+    kind: functools.partial(planner, budget=REFERENCE_BUDGET)
+    for kind, planner in (("auto", tpart.auto_partition),
+                          ("layerwise", tpart.layerwise_partition),
+                          ("paper", tpart.paper_partition))
 }
 BATCH = 2
 

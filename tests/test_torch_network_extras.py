@@ -13,6 +13,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from repro.net import graph as jgraph  # noqa: E402
 from repro.net import runner as jrunner  # noqa: E402
+from repro_torch.core.program import REFERENCE_BUDGET  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.net import graph as tgraph  # noqa: E402
 from repro_torch.net import partition as tpart  # noqa: E402
@@ -47,7 +48,8 @@ def _model(name):
 @pytest.mark.parametrize("name", sorted(SIZES))
 def test_run_network_bf16_within_tolerance(name):
     tg, tp, x, ref = _model(name)
-    plan = tpart.auto_partition(tg, batch=BATCH, compute_dtype="bfloat16")
+    plan = tpart.auto_partition(tg, batch=BATCH, compute_dtype="bfloat16",
+                                budget=REFERENCE_BUDGET)
     logits, _ = trunner.run_network(
         torch.from_numpy(x), trunner.prepare_network_params(plan, tp),
         plan=plan,
@@ -76,9 +78,9 @@ def test_prepare_params_matches_reference_flat_keys():
     )
     from repro.net.partition import auto_partition as jauto
 
-    budget = tpart.min_vmem_budget(tg)
-    jplan = jauto(jg, vmem_budget=budget)
-    tplan = tpart.auto_partition(tg, vmem_budget=budget)
+    budget = tpart.min_budget(tg, budget=REFERENCE_BUDGET)
+    jplan = jauto(jg, vmem_budget=budget.nbytes)
+    tplan = tpart.auto_partition(tg, budget=budget)
     jprep = jrunner.prepare_network_params(jplan, jp)
     tprep = trunner.prepare_network_params(tplan, tp)
     jflat = sorted(k for k in jprep if k.startswith("_flat/"))
@@ -102,7 +104,8 @@ def test_sparse_input_skips_and_traced_spans():
     jshift = {k: (jnp.asarray(w.numpy()), jnp.asarray(b.numpy()))
               for k, (w, b) in shifted.items()}
     ref = np.asarray(jrunner.reference_network(jnp.asarray(xs), jg, jshift))
-    plan = tpart.auto_partition(tg, batch=BATCH, prefer_region="smallest")
+    plan = tpart.auto_partition(tg, batch=BATCH, prefer_region="smallest",
+                                budget=REFERENCE_BUDGET)
     with tracing() as col:
         logits, skips = trunner.run_network(torch.from_numpy(xs), shifted,
                                             plan=plan)

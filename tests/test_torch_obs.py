@@ -25,6 +25,7 @@ from repro.obs import timeline as jtimeline  # noqa: E402
 from repro.obs.trace import LaunchSpan as JLaunchSpan  # noqa: E402
 from repro_torch.core.cycle_model import timeline_end  # noqa: E402
 from repro_torch.net.graph import MODELS  # noqa: E402
+from repro_torch.core.program import CARD_BUDGET, REFERENCE_BUDGET  # noqa: E402
 from repro_torch.net.partition import auto_partition  # noqa: E402
 from repro_torch.net.runner import (  # noqa: E402
     init_network_params,
@@ -40,8 +41,9 @@ DTYPES = ("float32", "bfloat16")
 
 def _plans(model, dtype):
     """The port's and the reference's auto plan of one zoo model at its
-    full (paper) size."""
-    return (auto_partition(MODELS[model](), compute_dtype=dtype),
+    full (paper) size, the port's under the reference's budget."""
+    return (auto_partition(MODELS[model](), compute_dtype=dtype,
+                           budget=REFERENCE_BUDGET),
             jauto(JMODELS[model](), compute_dtype=dtype))
 
 
@@ -194,7 +196,7 @@ def test_format_report_labels_each_time():
 def test_plan_table_equals_the_reference(model):
     plan, jplan = _plans(model, "float32")
     lines, jlines = [], []
-    explain.plan_table(plan, plan.vmem_budget, lines.append)
+    explain.plan_table(plan, plan.budget, lines.append)
     jexplain.plan_table(jplan, jplan.vmem_budget, jlines.append)
     assert lines == jlines
 
@@ -235,9 +237,13 @@ def test_explain_runs_guarded_and_traced_on_the_cpu(tmp_path, capsys):
 
 
 def test_explain_squeeze_shows_the_replan_rung(capsys):
+    # half of what LeNet's fused launch holds on the card, as a share of
+    # the card's budget: the fused launch no longer fits, its layerwise
+    # split does
+    need = auto_partition(MODELS["lenet"]()).pyramids[0].launch.card_bytes()
     assert explain.main([
         "--model", "lenet", "--device", "cpu", "--guard",
-        "--squeeze", "0.002",
+        "--squeeze", str(need / 2 / CARD_BUDGET.nbytes),
     ]) == 0
     text = capsys.readouterr().out
     assert "'replan': 1" in text and "degraded plan:" in text

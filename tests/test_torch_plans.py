@@ -4,7 +4,9 @@ auto-partitioner against the reference's, field by field.
 Both packages are pure Python over static shapes here, so every
 ``TileProgram`` / ``LaunchPlan`` / ``PartitionPlan`` must be *equal* (as
 nested dicts of their dataclass fields), and so must every modeled byte
-and cycle count — the port runs exactly the reference's plans.
+and cycle count — the port runs exactly the reference's plans when it is
+asked for the reference's TPU budget (``REFERENCE_BUDGET``), which every
+comparison here passes on the port's side.
 """
 
 import dataclasses
@@ -25,10 +27,22 @@ from repro_torch.robust.errors import BudgetError, PlanError  # noqa: E402
 
 MODELS = sorted(jgraph.MODELS)
 DTYPES = ("float32", "bfloat16")
+REFERENCE = tprog.REFERENCE_BUDGET
 
 
 def _fields(obj):
     return dataclasses.asdict(obj)
+
+
+def _plan_fields(plan):
+    """A port ``PartitionPlan``'s fields in the reference's shape: its
+    budget must be the reference's model, and its bytes stand where the
+    reference keeps its ``vmem_budget`` int."""
+    d = dataclasses.asdict(plan)
+    budget = d.pop("budget")
+    assert type(plan.budget) is tprog.TpuVmemBudget
+    d["vmem_budget"] = budget["nbytes"]
+    return d
 
 
 def _segment_specs(model, input_size=None):
@@ -77,13 +91,15 @@ def test_plan_launch_every_segment(model):
                 for pref in ("largest", "smallest"):
                     jl = jprog.plan_launch(jspec, batch=batch, compute_dtype=dt,
                                            prefer_region=pref)
-                    tl = tprog.plan_launch(tspec, batch=batch, compute_dtype=dt,
+                    tl = tprog.plan_launch(tspec, REFERENCE, batch=batch,
+                                           compute_dtype=dt,
                                            prefer_region=pref)
                     if jl is None:
                         assert tl is None
                         continue
                     assert _fields(jl) == _fields(tl)
-                    assert jl.describe(batch, 1 << 24) == tl.describe(batch, 1 << 24)
+                    assert jl.describe(batch, 1 << 24) == tl.describe(batch,
+                                                                      REFERENCE)
                     assert jl.modeled_us(batch) == tl.modeled_us(batch)
 
 
@@ -95,8 +111,8 @@ def test_auto_partition_full_size(model, dtype, batch):
     jp = jpart.auto_partition(jgraph.MODELS[model](), batch=batch,
                               compute_dtype=dtype)
     tp = tpart.auto_partition(tgraph.MODELS[model](), batch=batch,
-                              compute_dtype=dtype)
-    assert _fields(jp) == _fields(tp)
+                              compute_dtype=dtype, budget=REFERENCE)
+    assert _fields(jp) == _plan_fields(tp)
     assert jp.hbm_bytes() == tp.hbm_bytes()
     assert jp.modeled_cycles() == tp.modeled_cycles()
     assert jp.summary() == tp.summary()
@@ -106,14 +122,14 @@ def test_resnet18_headline_plans():
     """The slice's plans: ResNet-18 f32 b1 has 12 launches with the last one
     channel-tiled; f32 b8 13 resident launches; VGG-16 f32 b1 a Q=7 alpha=4
     head and a c_tiles=8 tail."""
-    b1 = tpart.auto_partition(tgraph.resnet18(), batch=1)
+    b1 = tpart.auto_partition(tgraph.resnet18(), batch=1, budget=REFERENCE)
     assert b1.n_launches() == 12
     assert [p.launch.c_tiles for p in b1.pyramids][-1] == 4
     assert sum(p.launch.c_tiles > 1 for p in b1.pyramids) == 1
-    b8 = tpart.auto_partition(tgraph.resnet18(), batch=8)
+    b8 = tpart.auto_partition(tgraph.resnet18(), batch=8, budget=REFERENCE)
     assert b8.n_launches() == 13
     assert all(p.launch.c_tiles == 1 for p in b8.pyramids)
-    vgg = tpart.auto_partition(tgraph.vgg16(), batch=1)
+    vgg = tpart.auto_partition(tgraph.vgg16(), batch=1, budget=REFERENCE)
     head, tail = vgg.pyramids[0], vgg.pyramids[-1]
     assert (head.q_convs, head.launch.program.alpha) == (7, 4)
     assert tail.launch.c_tiles == 8
@@ -125,21 +141,22 @@ def test_layerwise_and_paper_partitions(model, dtype):
     for jf, tf in ((jpart.layerwise_partition, tpart.layerwise_partition),
                    (jpart.paper_partition, tpart.paper_partition)):
         jp = jf(jgraph.MODELS[model](), compute_dtype=dtype)
-        tp = tf(tgraph.MODELS[model](), compute_dtype=dtype)
-        assert _fields(jp) == _fields(tp)
+        tp = tf(tgraph.MODELS[model](), compute_dtype=dtype, budget=REFERENCE)
+        assert _fields(jp) == _plan_fields(tp)
 
 
 @pytest.mark.parametrize("model", MODELS)
 def test_min_budget_and_replan(model):
     jg, tg = jgraph.MODELS[model](), tgraph.MODELS[model]()
     for dt in DTYPES:
-        assert jpart.min_vmem_budget(jg, compute_dtype=dt) == \
-            tpart.min_vmem_budget(tg, compute_dtype=dt)
-    jplan, tplan = jpart.auto_partition(jg), tpart.auto_partition(tg)
-    budget = tpart.min_vmem_budget(tg)
+        assert jpart.min_vmem_budget(jg, compute_dtype=dt) == tpart.min_budget(
+            tg, budget=REFERENCE, compute_dtype=dt).nbytes
+    jplan = jpart.auto_partition(jg)
+    tplan = tpart.auto_partition(tg, budget=REFERENCE)
+    budget = tpart.min_budget(tg, budget=REFERENCE)
     for jpyr, tpyr in zip(jplan.pyramids, tplan.pyramids):
-        jr = jpart.replan_pyramid(jg, jpyr, vmem_budget=budget)
-        tr = tpart.replan_pyramid(tg, tpyr, vmem_budget=budget)
+        jr = jpart.replan_pyramid(jg, jpyr, vmem_budget=budget.nbytes)
+        tr = tpart.replan_pyramid(tg, tpyr, budget=budget)
         assert [_fields(p) for p in jr] == [_fields(p) for p in tr]
 
 
@@ -153,7 +170,8 @@ def test_errors_match_the_reference():
     with pytest.raises(JBudgetError):
         jpart.auto_partition(jgraph.lenet5(), vmem_budget=1024)
     with pytest.raises(BudgetError, match="fits no launch regime"):
-        tpart.auto_partition(tgraph.lenet5(), vmem_budget=1024)
+        tpart.auto_partition(tgraph.lenet5(),
+                             budget=dataclasses.replace(REFERENCE, nbytes=1024))
 
 
 def test_partition_cache_counts_hits():

@@ -29,6 +29,7 @@ from repro.core.fusion import FusionSpec as JSpec  # noqa: E402
 from repro.core.fusion import lockstep_plan as jlockstep  # noqa: E402
 from repro.kernels.fused_conv import ops as jops  # noqa: E402
 from repro_torch.core.fusion import FusedLevel, FusionSpec  # noqa: E402
+from repro_torch.core import program as tprog  # noqa: E402
 from repro_torch.core.program import compile_program  # noqa: E402
 from repro_torch.kernels.fused_conv import fused_conv as fc  # noqa: E402
 from repro_torch.kernels.fused_conv import ops  # noqa: E402
@@ -190,20 +191,23 @@ def test_bf16_pyramid_tracks_f32(name):
 def test_plan_chunks_and_chain_match_reference():
     jspec = Q3_CHAIN
     jchunks = jops.plan_chunks(jspec, max_convs_per_chunk=2)
-    tchunks = ops.plan_chunks(_port(jspec), max_convs_per_chunk=2)
+    tchunks = ops.plan_chunks(_port(jspec), max_convs_per_chunk=2,
+                              budget=tprog.REFERENCE_BUDGET)
     assert [dataclasses.asdict(c) for c in jchunks] == [
         dataclasses.asdict(c) for c in tchunks
     ]
     x, ws, bs, tw, tb = _case(jspec)
     y, skips = ops.fused_pyramid_chain(torch.from_numpy(x), tw, tb,
                                        spec=_port(jspec),
-                                       max_convs_per_chunk=2)
+                                       max_convs_per_chunk=2,
+                                       budget=tprog.REFERENCE_BUDGET)
     assert [s.shape[-1] for s in skips] == [2, 1]
     np.testing.assert_allclose(
         y.numpy(), _oracle("odd_q3", jspec, 4, x, ws, bs), atol=1e-5
     )
     with pytest.raises(BudgetError, match="even alone"):
-        ops.plan_chunks(_port(LENET5_FUSION), vmem_budget=1024)
+        ops.plan_chunks(_port(LENET5_FUSION), budget=dataclasses.replace(
+            tprog.REFERENCE_BUDGET, nbytes=1024))
 
 
 def test_fused_conv2_and_ref_wrappers():
@@ -268,7 +272,7 @@ def test_descriptor_layout():
         max(p.out_size, p.pool_out) ** 2 * p.n_out for p in prog.levels
     )
     # the per-cell capacity, rounded up so every cell starts 16-byte aligned
-    assert desc[10] == cap == -(-need // fc._CAP_ALIGN) * fc._CAP_ALIGN
+    assert desc[10] == cap == -(-need // tprog.SCRATCH_ALIGN) * tprog.SCRATCH_ALIGN
     assert cap % 8 == 0 and need <= cap < need + 8
     assert desc[11] == 512
     lvl1 = desc[fc._HEADER + fc._PER_LEVEL:][: fc._PER_LEVEL]
@@ -278,13 +282,13 @@ def test_descriptor_layout():
     splits = [f[-2] for f in fields]
     tiles = [f[-1] for f in fields]
     assert all(s >= 1 for s in splits)
-    assert tiles == [fc._tile_shape(p.out_size ** 2) for p in prog.levels]
-    assert fc.level_tiles(prog) == [f"{fc._TILE_M[t]}x{fc._TILE_N}"
+    assert tiles == [tprog.conv_tile(p.out_size ** 2) for p in prog.levels]
+    assert fc.level_tiles(prog) == [f"{tprog.CONV_TILE_M[t]}x{tprog.CONV_TILE_N}"
                                     for t in tiles]
     for p, s, t in zip(prog.levels, splits, tiles):
-        n_tiles = (3 * prog.alpha ** 2 * -(-p.out_size ** 2 // fc._TILE_M[t])
-                   * -(-p.n_out // fc._TILE_N))
-        assert s == fc._splits(n_tiles, p.K * p.K * p.n_in, 512)
+        n_tiles = (3 * prog.alpha ** 2 * -(-p.out_size ** 2 // tprog.CONV_TILE_M[t])
+                   * -(-p.n_out // tprog.CONV_TILE_N))
+        assert s == tprog.k_splits(n_tiles, p.K * p.K * p.n_in, 512)
     assert partial == max(
         [s * 3 * prog.alpha ** 2 * p.out_size ** 2 * p.n_out
          for s, p in zip(splits, prog.levels) if s > 1], default=0
@@ -319,7 +323,7 @@ def test_descriptor_rejects_sizes_past_32_bits():
      (392, 576, 264, 1)],
 )
 def test_k_split_fills_the_grid(tiles, kdim, grid, want):
-    assert fc._splits(tiles, kdim, grid) == want
+    assert tprog.k_splits(tiles, kdim, grid) == want
 
 
 @pytest.mark.parametrize(
@@ -335,4 +339,4 @@ def test_k_split_fills_the_grid(tiles, kdim, grid, want):
 def test_tile_shape_per_level(size, want):
     """The wrapper picks the small tile for a level that a large tile would
     leave mostly empty (7 x 7) and the large one for a 56 x 56 level."""
-    assert fc._tile_shape(size * size) == want
+    assert tprog.conv_tile(size * size) == want

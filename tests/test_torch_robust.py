@@ -21,7 +21,12 @@ from repro.robust import faults as jfaults  # noqa: E402
 from repro.robust import guard as jguard  # noqa: E402
 from repro.robust import validate as jvalidate  # noqa: E402
 from repro_torch.core.fusion import FusedLevel, FusionSpec  # noqa: E402
-from repro_torch.core.program import compile_program, plan_launch  # noqa: E402
+from repro_torch.core.program import (  # noqa: E402
+    REFERENCE_BUDGET,
+    TpuVmemBudget,
+    compile_program,
+    plan_launch,
+)
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.net import graph as tgraph  # noqa: E402
 from repro_torch.net import partition as tpart  # noqa: E402
@@ -48,6 +53,18 @@ from repro_torch.robust.guard import (  # noqa: E402
 BATCH = 2
 
 
+def _reference(nbytes: int) -> TpuVmemBudget:
+    """The reference's TPU budget model at ``nbytes``."""
+    return TpuVmemBudget(nbytes)
+
+
+def _port_auto(graph, *, vmem_budget=REFERENCE_BUDGET.nbytes, **kwargs):
+    """The port's auto_partition under the reference's budget model, called
+    as the reference's is."""
+    return tpart.auto_partition(graph, budget=_reference(vmem_budget),
+                                **kwargs)
+
+
 def _sides():
     """LeNet-5 at batch 2 on both packages from the reference's seeded
     params: one namespace per side with the helpers the bad-input cases
@@ -64,13 +81,15 @@ def _sides():
     sides = {}
     for name, graph, master, xs, mod in (
         ("port", tg, tmaster, torch.from_numpy(x), types.SimpleNamespace(
-            auto=tpart.auto_partition, prep=trunner.prepare_network_params,
+            auto=_port_auto, prep=trunner.prepare_network_params,
             preflight=preflight, corrupt=tfaults.corrupt_params,
+            budget_kw=lambda n: {"budget": _reference(n)},
             cat=lambda a: torch.cat(a, -1), zeros=lambda n: torch.zeros(n),
             ints=lambda w: w.to(torch.int32))),
         ("ref", jg, jmaster, jnp.asarray(x), types.SimpleNamespace(
             auto=jpart.auto_partition, prep=jrunner.prepare_network_params,
             preflight=jvalidate.preflight, corrupt=jfaults.corrupt_params,
+            budget_kw=lambda n: {"vmem_budget": n},
             cat=lambda a: jnp.concatenate(a, -1),
             zeros=lambda n: jnp.zeros((n,), jnp.float32),
             ints=lambda w: w.astype(jnp.int32))),
@@ -144,7 +163,7 @@ PREFLIGHT_CASES = {
     "stale_flat": lambda s: (s.x, _replace(
         s.prepped, "_flat/NOPE..NADA", s.zeros(8)), s.plan, {}),
     "flat_for_resident": _flat_resident,
-    "budget": lambda s: (s.x, s.prepped, s.plan, {"vmem_budget": 1024}),
+    "budget": lambda s: (s.x, s.prepped, s.plan, s.budget_kw(1024)),
 }
 
 
@@ -233,7 +252,8 @@ class TestPreflight:
 
     def test_flat_dtype_mismatch(self, lenet_setup):
         g, params, plan, prepped, x = lenet_setup
-        tight = tpart.auto_partition(g, batch=BATCH, vmem_budget=10_000)
+        tight = tpart.auto_partition(g, batch=BATCH,
+                                     budget=_reference(10_000))
         assert any(p.launch.streamed for p in tight.pyramids)
         t_prepped = trunner.prepare_network_params(tight, params)
         with pytest.raises(PreflightError, match="different dtype"):
@@ -242,7 +262,7 @@ class TestPreflight:
     def test_budget_headroom(self, lenet_setup):
         g, params, plan, prepped, x = lenet_setup
         with pytest.raises(BudgetError) as ei:
-            preflight(x, prepped, plan=plan, vmem_budget=1024)
+            preflight(x, prepped, plan=plan, budget=_reference(1024))
         assert ei.value.context["vmem_budget"] == 1024
 
     def test_run_network_guarded_preflights(self, lenet_setup):
@@ -281,9 +301,9 @@ class TestTypedErrorsReplaceAsserts:
     def test_partition_infeasible_budget(self):
         seg = fusable_segments(MODELS["lenet"]())[0]
         with pytest.raises(BudgetError, match="fits no launch regime"):
-            tpart.partition_segment(seg, vmem_budget=256)
+            tpart.partition_segment(seg, budget=_reference(256))
         with pytest.raises(ValueError):
-            tpart.partition_segment(seg, vmem_budget=256)
+            tpart.partition_segment(seg, budget=_reference(256))
 
 
 class TestReplanPyramid:
@@ -294,10 +314,12 @@ class TestReplanPyramid:
         for name, s in sides.items():
             pyr = s.plan.pyramids[0]
             budget = pyr.launch.vmem_bytes() * 2 // 3
-            replan = tpart.replan_pyramid if name == "port" \
-                else jpart.replan_pyramid
-            subs[name] = replan(s.graph, pyr, vmem_budget=budget,
-                                batch=BATCH)
+            if name == "port":
+                subs[name] = tpart.replan_pyramid(
+                    s.graph, pyr, budget=_reference(budget), batch=BATCH)
+            else:
+                subs[name] = jpart.replan_pyramid(
+                    s.graph, pyr, vmem_budget=budget, batch=BATCH)
             assert tuple(n for sp in subs[name] for n in sp.node_names) \
                 == pyr.node_names
             assert all(sp.launch.vmem_bytes() <= budget for sp in subs[name])
@@ -308,8 +330,8 @@ class TestReplanPyramid:
     def test_exhausted_budget_raises(self, lenet_setup):
         g, params, plan, prepped, x = lenet_setup
         with pytest.raises(BudgetError):
-            tpart.replan_pyramid(g, plan.pyramids[0], vmem_budget=128,
-                                 batch=BATCH)
+            tpart.replan_pyramid(g, plan.pyramids[0],
+                                 budget=_reference(128), batch=BATCH)
 
 
 class TestGuardDispatch:
@@ -448,7 +470,7 @@ class TestSegmentReluThreading:
         no_relu = [p for p in plan.pyramids if not p.relu]
         assert no_relu, "expected relu-free shortcut pyramids"
         subs = tpart.replan_pyramid(
-            g, no_relu[0], vmem_budget=plan.vmem_budget, batch=1
+            g, no_relu[0], budget=plan.budget, batch=1
         )
         assert all(not sp.relu for sp in subs)
 

@@ -43,6 +43,10 @@ from repro.net import graph as jgraph  # noqa: E402
 from repro.net import runner as jrunner  # noqa: E402
 from repro.net import serve as jserve  # noqa: E402
 from repro.obs import explain as jexplain  # noqa: E402
+from repro_torch.core.program import (  # noqa: E402
+    REFERENCE_BUDGET,
+    TpuVmemBudget,
+)
 from repro_torch.core import cycle_model as tcm  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.net import runner  # noqa: E402
@@ -64,6 +68,7 @@ from repro_torch.net.serve import (  # noqa: E402
     pad_to_bucket,
 )
 from repro_torch.obs.explain import serve_table  # noqa: E402
+from test_torch_plans import _plan_fields  # noqa: E402
 from repro_torch.robust.errors import NumericError, PreflightError  # noqa: E402
 
 # f32 logits against the reference's reference_network: the same math,
@@ -170,11 +175,17 @@ def test_config_errors_match_the_reference(kwargs):
 
 
 def test_config_fields_are_the_references_without_interpret():
+    """The reference's fields but ``interpret``, its ``vmem_budget`` int
+    carried as a ``budget``; under the reference's budget model the defaults
+    are the reference's."""
     ours = [f.name for f in dataclasses.fields(ServeConfig)]
     theirs = [f.name for f in dataclasses.fields(jserve.ServeConfig)]
-    assert ours == [f for f in theirs if f != "interpret"]
-    assert ServeConfig() == ServeConfig(**{
-        f: getattr(jserve.ServeConfig(), f) for f in ours})
+    assert ours == ["budget" if f == "vmem_budget" else f
+                    for f in theirs if f != "interpret"]
+    ref = jserve.ServeConfig()
+    assert ServeConfig(budget=REFERENCE_BUDGET) == ServeConfig(**{
+        f: (TpuVmemBudget(ref.vmem_budget) if f == "budget"
+            else getattr(ref, f)) for f in ours})
 
 
 class TestBucketing:
@@ -497,7 +508,7 @@ class TestJitRetrace:
 
 class TestSummary:
     def test_bucket_rows_publish_slo_and_measured(self, ref_serving):
-        eng = _engine()
+        eng = _engine(budget=REFERENCE_BUDGET)
         eng.serve([_images(r, seed=r) for r in (1, 2, 4)])
         summary = eng.summary()
         assert summary["model"] == "lenet"
@@ -639,12 +650,14 @@ def test_bucket_entries_equal_the_references(model, dtype):
     jg, jp, g, tp = (_side(model) if model != "lenet"
                      else (JGRAPH, JPARAMS, GRAPH, PARAMS))
     eng = ServingEngine(g, tp, ServeConfig(buckets=(1, 2, 4),
-                                           compute_dtype=dtype), device="cpu")
+                                           compute_dtype=dtype,
+                                           budget=REFERENCE_BUDGET),
+                        device="cpu")
     ref = _ref_engine(jg, jp, compute_dtype=dtype)
     assert eng.compute_dtype == ref.compute_dtype == dtype
     for bucket in (1, 2, 4):
         e, je = eng._entry(bucket), ref._entry(bucket)
-        assert dataclasses.asdict(e.plan) == dataclasses.asdict(je.plan)
+        assert _plan_fields(e.plan) == dataclasses.asdict(je.plan)
         assert (e.compute_cycles, e.staging_cycles) == (
             je.compute_cycles, je.staging_cycles)
         assert (e.slo_us, e.steady_us) == (je.slo_us, je.steady_us)
@@ -696,8 +709,8 @@ class TestBatchAwareCosting:
 
     def test_partition_shifts_with_batch(self):
         g = MODELS["resnet18"]()
-        p1 = auto_partition(g, batch=1)
-        p8 = auto_partition(g, batch=8)
+        p1 = auto_partition(g, batch=1, budget=REFERENCE_BUDGET)
+        p8 = auto_partition(g, batch=8, budget=REFERENCE_BUDGET)
         assert [p.launch.regime for p in p1.pyramids] != [
             p.launch.regime for p in p8.pyramids
         ]

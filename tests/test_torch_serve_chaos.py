@@ -37,6 +37,7 @@ from repro.net import serve as jserve  # noqa: E402
 from repro.obs import tracing as jtracing  # noqa: E402
 from repro.robust import errors as jerrors  # noqa: E402
 from repro.robust import faults as jfaults  # noqa: E402
+from repro_torch.core.program import REFERENCE_BUDGET  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.net.frontend import ServingFrontend  # noqa: E402
 from repro_torch.net.graph import MODELS  # noqa: E402
@@ -79,7 +80,10 @@ def _images(rows: int, seed: int = 0) -> np.ndarray:
 
 
 def _engine(**overrides) -> ServingEngine:
-    cfg = ServeConfig(**{"buckets": (1, 2, 4), **overrides})
+    """The port's engine under the reference's TPU budget, whose plans are
+    the reference engine's."""
+    cfg = ServeConfig(**{"buckets": (1, 2, 4), "budget": REFERENCE_BUDGET,
+                         **overrides})
     return ServingEngine(GRAPH, PARAMS, cfg, device="cpu")
 
 
