@@ -238,7 +238,24 @@ a plain backward.  Phases, any failure exits non-zero:
    as subprocesses, ``--dry-stream`` and ``--inject slow_launch
    --breaker 1 --watchdog 3``.  Its launches go on a ``serve launches``
    line of their own.
-12. results — one ``{"kernels": [...]}`` line (for the pyramid kernels
+12. examples — the port's four examples run as a user runs them, one
+   subprocess each (``python examples/torch_*.py`` with
+   ``PYTHONPATH=src``, on the card, reusing ``build/``), each exiting 0
+   with its lines parsed and checked: ``torch_quickstart.py`` (alpha 5,
+   13.75 us and 86.10 GOPS from the paper's cycle model, fused against
+   reference within 1e-5); ``torch_fused_cnn_inference.py`` on LeNet-5,
+   AlexNet, VGG-16 and ResNet-18 at the zoo's full size in f32, ResNet-18
+   and VGG-16 in bf16 (card budget, ``EXAMPLES_FUSED``): logits within
+   the example's limit (f32 ``1e-4 * max(1, max|logit|)``,
+   ``bf16_logit_tol``) on dense and sparse input, kernel A's launches a
+   forward equal to the plan's, and END cells skipped on LeNet-5 and
+   VGG-16 at both dtypes, whose smallest-region plans hold a launch of two
+   or more convs over a grid finer than the image (each run an
+   ``examples fused {...}`` line); ``torch_serve_lm.py`` (three
+   rates > 0); ``torch_train_lm.py`` (``EXAMPLES_TRAIN_STEPS`` = 200 of
+   its 300, cut for the phase's time, in a fresh temporary checkpoint
+   directory, the loss falling); ``phase examples: N s``.
+13. results — one ``{"kernels": [...]}`` line (for the pyramid kernels
    ``launches`` sums phase 3's nine forwards, the four under the
    reference's budget and the five under the card's,
    ``launches_per_forward`` splits it (``@card`` keys), and every time sums
@@ -266,6 +283,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -4319,6 +4337,177 @@ class Serve:
         return self.summary
 
 
+# ---- phase examples -------------------------------------------------------
+
+# (model, dtype, must the END cascade skip cells on the sparse input): the
+# fused CNN example at the zoo's full size under the card's budget.  The
+# smallest-region plans of LeNet-5 and VGG-16 hold launches of two or more
+# convs over a tile grid finer than the image, where tiles die; AlexNet's
+# (one tile an image) and ResNet-18's (one-conv launches) hold none
+EXAMPLES_FUSED = (
+    ("lenet", "float32", True),
+    ("alexnet", "float32", False),
+    ("vgg16", "float32", True),
+    ("resnet18", "float32", False),
+    ("resnet18", "bfloat16", False),
+    ("vgg16", "bfloat16", True),
+)
+# cut from the example's 300 steps for the phase's time: 300 took 51.0 s
+# and the phase 159.6 s (a run of the phase alone on an H100 80GB HBM3 at
+# 700 W), over its 150 s
+EXAMPLES_TRAIN_STEPS = 200
+EXAMPLES_QUICKSTART_TOL = 1e-5
+EXAMPLES_SERVE_TOKENS = 12
+# fused-example lines echoed (the plan rows and traced spans stay in --out)
+_EXAMPLE_ECHO = ("plan (", "run_network:", "max |err|", "kernel launches",
+                 "forward:", "smallest-region plan", "sparse input",
+                 "  END skips", "END skipped")
+
+
+def _search(pattern: str, text: str, what: str):
+    m = re.search(pattern, text, re.M)
+    if m is None:
+        raise AssertionError(f"examples {what}: no line matches {pattern!r}")
+    return m
+
+
+class ExamplesPhase:
+    """The port's four examples (``examples/torch_*.py``) run as a user
+    runs them: one subprocess each, ``PYTHONPATH=src``, on the card (no
+    ``--device``), reusing the kernel libraries phase 1 built under
+    ``build/``.  Each must exit 0; its printed lines are parsed and held to
+    what the example claims (module docstring, phase 12)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        self.summary: dict = {}
+
+    def _run(self, name: str, *args: str, echo=None) -> tuple[str, float]:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / f"torch_{name}.py"),
+             *args],
+            cwd=ROOT, env=self.env, capture_output=True, text=True,
+            timeout=600,
+        )
+        seconds = time.perf_counter() - t0
+        tag = " ".join((name, *args))
+        for line in proc.stdout.splitlines():
+            if echo is None or line.startswith(echo):
+                print(f"examples {tag}| {line}", flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"examples {tag} exited {proc.returncode}:"
+                                 f" {proc.stderr[-4000:]}")
+        return proc.stdout, seconds
+
+    def quickstart(self) -> dict:
+        out, seconds = self._run("quickstart")
+        alpha = int(_search(r"^uniform alpha: (\d+)", out, "quickstart")[1])
+        us = float(_search(r"DS-1 fused duration: ([\d.]+) us", out,
+                           "quickstart")[1])
+        gops = _search(r"([\d.]+) GOPS \(paper", out, "quickstart")[1]
+        err = float(_search(r"fused vs reference max err: (\S+) \(cuda\)",
+                            out, "quickstart")[1])
+        end = _search(r"END: ([\d.]+)% detected negative early, ([\d.]+)%",
+                      out, "quickstart")
+        row = dict(alpha=alpha, duration_us=us, gops=gops, max_abs_err=err,
+                   end_detected_pct=float(end[1]),
+                   end_cycles_saved_pct=float(end[2]), s=seconds)
+        if (alpha, us, gops) != (5, 13.75, "86.10"):
+            raise AssertionError(f"examples quickstart: {row}")
+        if not err <= EXAMPLES_QUICKSTART_TOL:
+            raise AssertionError(f"examples quickstart: fused error {err}")
+        return row
+
+    def fused(self, model: str, dtype: str, must_skip: bool) -> dict:
+        from repro_torch.net.graph import MODELS
+
+        out, seconds = self._run("fused_cnn_inference", "--model", model,
+                                 "--dtype", dtype,
+                                 echo=(model,) + _EXAMPLE_ECHO)
+        what = f"fused {model} {dtype}"
+        size = int(_search(r"input (\d+)x\d+", out, what)[1])
+        err, tol = _search(r"reference: (\S+) \(limit (\S+), ", out, what
+                           ).groups()
+        serr, stol = _search(r"^sparse input: max \|err\| (\S+) \(limit"
+                             r" (\S+)\)", out, what).groups()
+        a, b, plan_n = map(int, _search(
+            r"fused_pyramid=(\d+) fused_pyramid_ktiled=(\d+) \(plan: (\d+)",
+            out, what).groups())
+        fired, cells = map(int, _search(r"END skipped cells: (\d+) of (\d+)",
+                                        out, what).groups())
+        tight = _search(r"^smallest-region plan: \d+ launches: (.*)$", out,
+                        what)[1]
+        grids = [(int(q), int(al)) for q, al in re.findall(
+            r"Q=(\d+) alpha=(\d+)", tight)]
+        row = dict(
+            model=model, dtype=dtype, input_size=size,
+            max_abs_err=float(err), limit=float(tol),
+            sparse_max_abs_err=float(serr), sparse_limit=float(stol),
+            launches_a=a, launches_b=b, plan_launches=plan_n,
+            forward_ms=float(_search(r"^forward: ([\d.]+) ms", out, what)[1]),
+            first_forward_s=float(_search(r"^run_network: .* in ([\d.]+)s", out,
+                                          what)[1]),
+            must_skip=must_skip, skipped_cells=fired, skip_cells=cells,
+            skip_lines=out.count("  END skips "),
+            tiled_q2=any(q >= 2 and al >= 2 for q, al in grids),
+            s=seconds,
+        )
+        if size != MODELS[model]().input_size:
+            raise AssertionError(f"examples {what}: input {size}")
+        if not (row["max_abs_err"] <= row["limit"]
+                and row["sparse_max_abs_err"] <= row["sparse_limit"]):
+            raise AssertionError(f"examples {what}: logits {row}")
+        if a < 1 or a + b != plan_n:
+            raise AssertionError(f"examples {what}: launches {row}")
+        # the cells that must skip do, whatever their plan; that the plan
+        # still holds a tiled launch of two or more convs is a cross-check
+        if must_skip and not (fired > 0 and row["skip_lines"] > 0
+                              and row["tiled_q2"]):
+            raise AssertionError(f"examples {what}: no END skip {row}")
+        print("examples fused " + json.dumps(row), flush=True)
+        return row
+
+    def serve_lm(self) -> dict:
+        out, seconds = self._run("serve_lm")
+        rows = re.findall(r"^(\S+)\s+generated (\d+) tokens/seq at ([\d.]+)"
+                          r" tok/s \(reduced config, (.+)\)$", out, re.M)
+        rates = {arch: float(r) for arch, n, r, _ in rows}
+        if (len(rows) != 3 or any(int(n) != EXAMPLES_SERVE_TOKENS
+                                  for _, n, _, _ in rows)
+                or not all(r > 0 for r in rates.values())):
+            raise AssertionError(f"examples serve_lm: {rows}")
+        return dict(tokens_per_s=rates, device=rows[0][3], s=seconds)
+
+    def train_lm(self) -> dict:
+        with tempfile.TemporaryDirectory() as ckpt:
+            out, seconds = self._run(
+                "train_lm", "--steps", str(EXAMPLES_TRAIN_STEPS),
+                "--ckpt-dir", ckpt)
+        m = _search(r"^loss: ([\d.]+) -> ([\d.]+) over (\d+) steps", out,
+                    "train_lm")
+        row = dict(first_loss=float(m[1]), last_loss=float(m[2]),
+                   steps=int(m[3]), resumed="resumed" in out, s=seconds)
+        if (row["steps"] != EXAMPLES_TRAIN_STEPS or row["resumed"]
+                or not row["last_loss"] < row["first_loss"]):
+            raise AssertionError(f"examples train_lm: {row}")
+        return row
+
+    def run(self) -> dict:
+        t0 = time.perf_counter()
+        self.torch.cuda.empty_cache()  # the subprocesses share the card
+        self.summary["quickstart"] = self.quickstart()
+        self.summary["fused"] = [self.fused(*cell) for cell in EXAMPLES_FUSED]
+        self.summary["serve_lm"] = self.serve_lm()
+        self.summary["train_lm"] = self.train_lm()
+        for k in ("quickstart", "serve_lm", "train_lm"):
+            print(f"examples {k} " + json.dumps(self.summary[k]), flush=True)
+        self.summary["seconds"] = time.perf_counter() - t0
+        print(f"phase examples: {self.summary['seconds']:.1f} s", flush=True)
+        return self.summary
+
+
 def _eager_forward(x, params, plan, dtype):
     """The forward issued launch by launch from Python, with no CUDA graph:
     what a replay is held against, bit for bit."""
@@ -4458,6 +4647,7 @@ def main(argv=None) -> int:
             ops = Ops(smoke, Path(tmp) if args.out is None
                       else args.out.parent).run()
         serve = Serve(smoke).run()
+        examples = ExamplesPhase(torch).run()
         kernels = []
         for k in fc.KERNELS:
             st = smoke.stats[k.symbol]
@@ -4498,6 +4688,7 @@ def main(argv=None) -> int:
                 plan=plan,
                 ops=ops,
                 serve=serve,
+                examples=examples,
                 seconds=time.perf_counter() - t0,
             ), indent=1))
         print(json.dumps({"kernels": kernels}), flush=True)

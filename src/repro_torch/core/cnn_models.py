@@ -21,12 +21,15 @@ from .fusion import FusedLevel, FusionSpec
 
 LENET5_INPUT = 32
 LENET5_FUSION = _zoo.backbone_prefix(_zoo.lenet5(LENET5_INPUT), 2)
+LENET5_LEVELS = LENET5_FUSION.levels
 
 ALEXNET_INPUT = 227
 ALEXNET_FUSION = _zoo.backbone_prefix(_zoo.alexnet(ALEXNET_INPUT), 2)
+ALEXNET_LEVELS = ALEXNET_FUSION.levels
 
 VGG_INPUT = 224
 VGG_FUSION = _zoo.backbone_prefix(_zoo.vgg16(VGG_INPUT), 4)
+VGG_BLOCK12_LEVELS = VGG_FUSION.levels
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,7 @@ CUDA device the entry points refuse instead of quietly running on the CPU.
 Runs in subprocesses so this process's own imports cannot mask a leak.
 """
 
+import ast
 import os
 import pathlib
 import shutil
@@ -16,6 +17,7 @@ import pytest
 pytest.importorskip("torch")
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
+EXAMPLES = sorted((REPO / "examples").glob("torch_*.py"))
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -126,3 +128,94 @@ def test_entry_points_need_a_device_without_cuda():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.strip() == "cpu"
+
+
+def test_four_examples_exist():
+    assert [p.name for p in EXAMPLES] == [
+        "torch_fused_cnn_inference.py", "torch_quickstart.py",
+        "torch_serve_lm.py", "torch_train_lm.py",
+    ]
+
+
+@pytest.mark.parametrize("example", EXAMPLES, ids=lambda p: p.stem)
+def test_example_imports_neither_jax_nor_the_reference(example):
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('ex', {str(example)!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "leaks = sorted(m for m in sys.modules\n"
+        "               if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print('leaks:', leaks)\n"
+        "sys.exit(1 if leaks else 0)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "leaks: []" in out.stdout
+
+
+@pytest.mark.parametrize("example", EXAMPLES, ids=lambda p: p.stem)
+def test_example_refuses_without_cuda(example):
+    """Run as a script with no card: non-zero exit, nothing on stdout, and
+    the reason on stderr."""
+    out = subprocess.run(
+        [sys.executable, str(example)], cwd=REPO,
+        env=_env(CUDA_VISIBLE_DEVICES=""), capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode != 0
+    assert out.stdout == ""
+    assert "no CUDA device" in out.stderr
+
+
+def _all_names(path: pathlib.Path) -> list[str]:
+    """A module's ``__all__`` list, read from its source."""
+    for node in ast.parse(path.read_text()).body:
+        if (isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == "__all__"
+                        for t in node.targets)):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"{path} has no __all__")
+
+
+def test_core_exports_the_reference_api():
+    """``repro_torch.core.__all__`` holds the counterpart of every name in
+    ``repro.core.__all__``, ``resolve_device`` standing for
+    ``resolve_interpret``, and each name resolves."""
+    ref = _all_names(REPO / "src" / "repro" / "core" / "__init__.py")
+    ours = _all_names(REPO / "src" / "repro_torch" / "core" / "__init__.py")
+    want = {"resolve_device" if n == "resolve_interpret" else n for n in ref}
+    assert len(ref) == 33
+    assert want == set(ours)
+    code = (
+        "import repro_torch.core as c\n"
+        "missing = [n for n in c.__all__ if not hasattr(c, n)]\n"
+        "print('missing:', missing)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "missing: []" in out.stdout
+
+
+@pytest.mark.parametrize("first", [
+    "import repro_torch.core",
+    "from repro_torch.core import plan_fusion, fused_forward, evaluate_design,"
+    " end_statistics, to_digits",
+    "import repro_torch.core.executor",
+    "import repro_torch.core.cnn_models",
+    "import repro_torch.net.runner",
+    "from repro_torch.core.cnn_models import LENET5_LEVELS, ALEXNET_LEVELS,"
+    " VGG_BLOCK12_LEVELS",
+])
+def test_core_imports_without_a_cycle(first):
+    """The package's first import, from a fresh process, by any door."""
+    out = subprocess.run(
+        [sys.executable, "-c", first], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
