@@ -22,14 +22,14 @@ Arctic-480B, MiniCPM3-4B), and the sixth the vision-language and
 encoder-decoder models' (Llama-3.2-11B-Vision, Whisper-large-v3); these two
 paths hold no kernel.  The seventh is training (``launch.steps.
 make_train_step``, ``launch.train.train`` and its CLI), whose Mamba-2 and
-Hymba steps run the SSD kernel in the forward of an autograd Function with
-a plain backward.  Phases, any failure exits non-zero:
+Hymba steps run the SSD kernel and its backward kernel inside an autograd
+Function.  Phases, any failure exits non-zero:
 
 1. build  — compile every kernel of the four paths from ``src/repro_torch/csrc``
    (one nvcc per source, started together); print the card's name and
    power limit, torch, CUDA and nvcc versions, the pyramid kernels', the
-   SOP kernel's and the SSD scan's ``ptxas`` lines (registers, stack,
-   spills), the pyramid
+   SOP kernel's, the SSD scan's and its backward's ``ptxas`` lines
+   (registers, stack, spills), the pyramid
    kernels' co-resident block count per dtype and the SSD scan's blocks a
    SM per instance at the Mamba-2 and Hymba models' (P, N, Q).
 2. pyramids — for every pyramid of the four plans below, the kernel against
@@ -166,27 +166,37 @@ a plain backward.  Phases, any failure exits non-zero:
 9. train — through the port's training entry points, each check a
    ``train {...}`` line, ending with a ``phase train: N s`` line.  Kernel
    D's Function on layer 0's SSD inputs of an f32 Mamba-2-780m forward at
-   full width (2 x 4096, 4 layers): one counted launch, ``y`` and state
-   within ``plain_tol``, every input's gradient equal bit for bit to
-   plain autograd's under the same random upstream gradients.  The cell:
+   full width (2 x 4096, 4 layers), under random upstream gradients: one
+   counted launch of D and one of its backward, ``y`` and state within
+   ``plain_tol``, every input's gradient within ``plain_tol`` of
+   ``ssd_scan_bwd_plain`` and, against float64 autograd, within 4 times
+   plain float32 autograd's own error plus 1e-6 of its magnitude, and a
+   second backward launch equal bit for bit.  The cell:
    Mamba-2-780m at full width and depth, bf16, remat full, float32
    moments, ``make_train_step(cfg, microbatches=2)`` on ``batch_at`` of 8
    x 4096 tokens (``train_4k``'s sequence, its batch of 256 cut to 8): a
    warm-up step and 3 timed (host clock ending in a synchronize), each
    with 192 counted launches of D (48 layers x 2 for the remat recompute
-   x 2 microbatches) and its peak memory, step 0's loss against the
-   cross-entropy of ``forward``'s whole logits in f32 (1e-3 relative), the
-   params unchanged by step 0 (its learning rate is 0) and moved by step
-   1, D's forward calls, its plain backward, ``chunked_ce`` and the update
-   timed by CUDA events; D at the step's shapes against its plain version,
-   its 192 launches timed bare and bounded.  Then at full width and 4 of
+   x 2 microbatches) and 96 of its backward, and its peak memory, step 0's
+   loss against the cross-entropy of ``forward``'s whole logits in f32
+   (1e-3 relative), the params unchanged by step 0 (its learning rate is
+   0) and moved by step 1, D's forward calls, its backward calls,
+   ``chunked_ce`` and the update timed by CUDA events; D at the step's
+   shapes against its plain version, its 192 launches timed bare and
+   bounded; D's backward at the step's shapes (a random bf16 gradient of
+   y, none of the state) against ``ssd_scan_bwd_plain`` (``plain_tol`` at
+   each gradient's type), twice equal bit for bit, its 96 launches timed
+   bare and as wrapper calls, its six kernels' device times by
+   ``torch.profiler``, the plain version's 96 calls, the bound.
+   Then at full width and 4 of
    48 layers, f32, 2 x 512 tokens: two steps on the card against the same
    two on the CPU (losses and step 1's gradients per leaf within 1e-4),
    and ``train`` in-process for 6 steps with a checkpoint at step 3,
    resumed (the replayed last loss within 1e-4 relative); Hymba-1.5B at
    full width and 4 of its 32 layers (global 0 and 3, sliding 1 and 2),
    bf16, two steps of 2 x 4096 through the chunked attention (every
-   leaf's gradient finite and non-zero, 8 launches a step); and
+   leaf's gradient finite and non-zero, 8 launches of D and 4 of its
+   backward a step, at Hymba's state of 16); and
    ``python -m repro_torch.launch.train --arch deepseek_7b --steps 3`` as a
    subprocess.
 10. ops — phase 3's ResNet-18 f32 and VGG-16 f32 batch-1 forwards (their
@@ -269,6 +279,8 @@ a plain backward.  Phases, any failure exits non-zero:
    holds phase hybrid's 32 launches and times at Hymba's heads, and a
    third, ``ssd_scan@mamba2_780m_train``, phase train's 192 launches a
    step with their bare time, plain time and bound at the step's shapes;
+   ``ssd_scan_bwd@mamba2_780m_train`` holds the backward kernel's 96
+   launches a step the same way, its wrapper calls' time beside them;
    each SSD entry names its path under ``path``), then the ``{"ok": true,
    "device": ...}`` line last.
 
@@ -1242,12 +1254,15 @@ class Lm:
 
         return {k.symbol: k.launches for k in build.KERNELS}
 
-    def _expect(self, n):
+    def _expect(self, n, bwd=0):
+        """Every kernel's expected count: ``n`` of D, ``bwd`` of D's
+        backward, 0 of the others."""
         from repro_torch.kernels import build
         from repro_torch.kernels.ssd_scan import ssd_scan as kd
 
         want = {k.symbol: 0 for k in build.KERNELS}
         want[kd.SSD_SCAN.symbol] = n
+        want[kd.SSD_SCAN_BWD.symbol] = bwd
         return want
 
     def prefill_bf16(self) -> dict:
@@ -2664,8 +2679,12 @@ TRAIN_SEQ = 4096
 TRAIN_BATCH = 8
 TRAIN_MICRO = 2
 TRAIN_TIMED = 3
-# D's launches a step: 48 layers x 2 (the remat recompute) x 2 microbatches
+# D's launches a step: 48 layers x 2 (the remat recompute) x 2 microbatches;
+# its backward's: 48 layers x 2 microbatches
 TRAIN_D_LAUNCHES = 48 * 2 * TRAIN_MICRO
+TRAIN_D_BWD_LAUNCHES = 48 * TRAIN_MICRO
+# launches of D's backward profiled for its parts' device times
+TRAIN_BWD_PROFILED = 5
 # D's autograd Function on layer 0's SSD inputs of an f32 forward at full
 # width (2 x 4096); the f32 card-vs-CPU steps and the restart run 4 of the
 # 48 layers at full width on 2 x 512 tokens (cut for time: the CPU runs the
@@ -2704,8 +2723,8 @@ class TrainPhase(Lm):
 
     def _spans(self):
         """Patch the step's parts with CUDA events: D's forward calls
-        (``ssm.ssd_scan``), the Function's plain backward
-        (``ops.ssd_scan_vjp``), ``chunked_ce`` (its forward, and its
+        (``ssm.ssd_scan``), the Function's backward calls
+        (``ops.ssd_scan_bwd_kernel``), ``chunked_ce`` (its forward, and its
         backward from the loss's gradient to the hidden states') and the
         optimizer update.  Returns ``(spans, restore)``; ``spans`` maps a
         part to its list of event pairs."""
@@ -2731,7 +2750,7 @@ class TrainPhase(Lm):
                 return out
             return wrapper
 
-        real = (ssm.ssd_scan, ops.ssd_scan_vjp, M.chunked_ce,
+        real = (ssm.ssd_scan, ops.ssd_scan_bwd_kernel, M.chunked_ce,
                 adamw.AdamW.update)
 
         def ce(cfg, params, hidden, targets, **kw):
@@ -2747,12 +2766,12 @@ class TrainPhase(Lm):
             return out
 
         ssm.ssd_scan = timed("ssd_fwd", real[0])
-        ops.ssd_scan_vjp = timed("ssd_bwd", real[1])
+        ops.ssd_scan_bwd_kernel = timed("ssd_bwd", real[1])
         M.chunked_ce = ce
         adamw.AdamW.update = timed("update", real[3])
 
         def restore():
-            (ssm.ssd_scan, ops.ssd_scan_vjp, M.chunked_ce,
+            (ssm.ssd_scan, ops.ssd_scan_bwd_kernel, M.chunked_ce,
              adamw.AdamW.update) = real
 
         return spans, restore
@@ -2794,12 +2813,15 @@ class TrainPhase(Lm):
 
     def d_autograd(self) -> dict:
         """Check 1: layer 0's SSD inputs of an f32 forward at full width,
-        through the Function (the kernel's forward, the plain backward) and
-        through ``ssd_scan_plain`` under autograd, with the same random
-        upstream gradients for ``y`` and the state: ``y`` and the state
-        within ``plain_tol``; every input's gradient present, finite and
-        equal bit for bit to plain autograd's (the backward recomputes the
-        same plain operations in the same order); one counted launch."""
+        through the Function (kernel D forward, its backward kernel) under
+        random upstream gradients for ``y`` and the state: one counted
+        launch of each; ``y`` and the state within ``plain_tol`` of
+        ``ssd_scan_plain``; every input's gradient present, finite, within
+        ``plain_tol`` of ``ssd_scan_bwd_plain`` on the same inputs (float32
+        sums in another order) and, against float64 autograd through
+        ``ssd_scan_plain``, within ``kd.f64_tol`` of plain float32
+        autograd's own error; a second run of the backward kernel equal bit
+        for bit."""
         from repro_torch.kernels import build
         from repro_torch.kernels.ssd_scan import ops
         from repro_torch.kernels.ssd_scan import ssd_scan as kd
@@ -2840,37 +2862,52 @@ class TrainPhase(Lm):
         got = torch.autograd.grad((y, state), fn_in, (gy, gs))
         ev[2].record()
         counts = self._counts()
-        if counts != self._expect(1):
+        if counts != self._expect(1, bwd=1):
             raise AssertionError(f"train d_autograd: launch counts {counts}")
         if y.grad_fn is None:
             raise AssertionError("train d_autograd: y has no autograd history")
-        pl_in = [t.clone().requires_grad_() for t in args]
-        py, ps = kd.ssd_scan_plain(*pl_in, chunk=chunk)
-        want = torch.autograd.grad((py, ps), pl_in, (gy, gs))
+        again = kd.ssd_scan_bwd_kernel(*args, gy, gs, chunk=chunk)
+        with torch.no_grad():
+            py, ps = kd.ssd_scan_plain(*args, chunk=chunk)
+            pb = kd.ssd_scan_bwd_plain(*kd.prepare(*args, chunk=chunk), gy, gs,
+                                       chunk=chunk)
+        own = ops.ssd_scan_vjp(args, chunk, [True] * 6, gy, gs)
+        want = ops.ssd_scan_vjp([t.double() for t in args], chunk, [True] * 6,
+                                gy.double(), gs.double())
         torch.cuda.synchronize()
-        y, state, py, ps = (t.detach() for t in (y, state, py, ps))
+        y, state = y.detach(), state.detach()
         ey = float((y - py).abs().max())
         es = float((state - ps).abs().max())
         ty, ts = kd.plain_tol(py, torch.float32), kd.plain_tol(ps, torch.float32)
         if not (ey <= ty and es <= ts):
             raise AssertionError(f"train d_autograd: y err {ey} (tol {ty}),"
                                  f" state err {es} (tol {ts})")
-        grad_err = {}
-        for n, g, w in zip(names, got, want):
+        grads = {}
+        for n, g, a, p, o, w in zip(names, got, again, pb, own, want):
             if g is None or not bool(torch.isfinite(g).all()):
                 raise AssertionError(f"train d_autograd: d{n} missing or"
                                      " not finite")
-            grad_err[n] = float((g - w).abs().max())
-        if any(grad_err.values()):
-            raise AssertionError(f"train d_autograd: gradients differ from"
-                                 f" plain autograd's: {grad_err} (limit:"
-                                 " equal bit for bit)")
+            scale = float(w.abs().max())
+            grads[n] = dict(
+                max_abs=float(g.abs().max()),
+                err_plain=float((g - p).abs().max()),
+                tol_plain=kd.plain_tol(p, torch.float32),
+                err_f64=float((g.double() - w).abs().max()),
+                autograd_f32_err_f64=float((o.double() - w).abs().max()),
+                equal_bits=bool(torch.equal(g, a)))
+            grads[n]["limit_f64"] = kd.f64_tol(
+                grads[n]["autograd_f32_err_f64"], scale)
+        bad = {n: r for n, r in grads.items()
+               if not (r["err_plain"] <= r["tol_plain"]
+                       and r["err_f64"] <= r["limit_f64"] and r["equal_bits"])}
+        if bad:
+            raise AssertionError(f"train d_autograd: gradients out of bounds"
+                                 f" or not reproducible: {bad}")
         row = dict(cell=f"D autograd f32 {b}x{S} (layer 0)",
-                   launches=counts[kd.SSD_SCAN.symbol], y_max_abs_err=ey,
-                   state_max_abs_err=es, y_tol=ty, state_tol=ts,
-                   grad_max_abs_diff=grad_err,
-                   grad_max_abs={n: float(g.abs().max())
-                                 for n, g in zip(names, got)},
+                   launches=counts[kd.SSD_SCAN.symbol],
+                   bwd_launches=counts[kd.SSD_SCAN_BWD.symbol],
+                   y_max_abs_err=ey, state_max_abs_err=es, y_tol=ty,
+                   state_tol=ts, grads=grads,
                    fwd_ms=ev[0].elapsed_time(ev[1]),
                    bwd_ms=ev[1].elapsed_time(ev[2]))
         self._print(row)
@@ -2886,7 +2923,7 @@ class TrainPhase(Lm):
         whole logits in f32; the params after step 0 equal those before
         (its learning rate is 0) and after step 1 not; the parts' device
         time by CUDA events.  Layer 0's SSD inputs of the first forward
-        are kept for the kernel's entry."""
+        are kept for the two kernels' entries."""
         import torch.nn.functional as F
 
         from repro_torch.kernels import build
@@ -2928,9 +2965,12 @@ class TrainPhase(Lm):
                 ssm.ssd_scan = real
             ms = (time.perf_counter() - t0) * 1e3
             counts = self._counts()
-            if counts != self._expect(TRAIN_D_LAUNCHES):
+            if counts != self._expect(TRAIN_D_LAUNCHES,
+                                      bwd=TRAIN_D_BWD_LAUNCHES):
                 raise AssertionError(f"train step {i}: launch counts {counts};"
-                                     f" want {TRAIN_D_LAUNCHES}")
+                                     f" want {TRAIN_D_LAUNCHES} of D and"
+                                     f" {TRAIN_D_BWD_LAUNCHES} of its"
+                                     " backward")
             loss = float(loss)
             if not math.isfinite(loss):
                 raise AssertionError(f"train step {i}: loss {loss}")
@@ -2941,7 +2981,8 @@ class TrainPhase(Lm):
                                      " moved (step 0's learning rate is 0)")
             row = dict(step=i, loss=loss, ms=ms,
                        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                       moved=moved, launches=counts[kd.SSD_SCAN.symbol])
+                       moved=moved, launches=counts[kd.SSD_SCAN.symbol],
+                       bwd_launches=counts[kd.SSD_SCAN_BWD.symbol])
             for part, evs in spans.items():
                 row[f"{part}_ms"] = sum(a.elapsed_time(b) for a, b in evs)
                 row[f"{part}_calls"] = len(evs)
@@ -2974,6 +3015,7 @@ class TrainPhase(Lm):
                    tokens_per_s=shape[0] * shape[1] / ms * 1e3,
                    peak_gb=max(r["peak_gb"] for r in timed),
                    launches=TRAIN_D_LAUNCHES,
+                   bwd_launches=TRAIN_D_BWD_LAUNCHES,
                    losses=[r["loss"] for r in steps],
                    step0_loss_vs_forward_ce=abs(steps[0]["loss"]
                                                 - steps[0]["forward_ce"]),
@@ -2984,6 +3026,7 @@ class TrainPhase(Lm):
         del params, new, state
         self.torch.cuda.empty_cache()
         self.kernel_at_train_shape(*captured[0])
+        self.bwd_at_train_shape(*captured[0])
         return row
 
     def kernel_at_train_shape(self, args, chunk) -> None:
@@ -3026,6 +3069,121 @@ class TrainPhase(Lm):
         self._print(row)
         self.summary["d_train_shape"] = row
 
+    def bwd_at_train_shape(self, args, chunk) -> None:
+        """D's backward at the step's shapes (one microbatch's layer-0
+        inputs, bf16, a random bf16 gradient of ``y`` and none of the
+        state, as in the step): each gradient against
+        ``ssd_scan_bwd_plain``'s within ``plain_tol`` at its type; a
+        second launch equal bit for bit; the step's
+        ``TRAIN_D_BWD_LAUNCHES`` launches as one bare span behind a device
+        spin and as wrapper calls (medians), the same calls of the plain
+        version as one span, and the bound of those launches."""
+        from repro_torch.kernels.ssd_scan import ssd_scan as kd
+
+        torch = self.torch
+        x = args[0]
+        b, S, H, P = x.shape
+        N = args[3].shape[-1]
+        gen = torch.Generator(device=self.device).manual_seed(13)
+        gy = torch.randn(x.shape, generator=gen, device=self.device).to(x.dtype)
+        gs = torch.zeros((b, H, P, N), dtype=torch.float32, device=self.device)
+        got = kd.ssd_scan_bwd_kernel(*args, gy, None, chunk=chunk)
+        again = kd.ssd_scan_bwd_kernel(*args, gy, None, chunk=chunk)
+        want = kd.ssd_scan_bwd_plain(*args, gy, gs, chunk=chunk)
+        names = ("x", "dt", "A", "B", "C", "D")
+        errs, tols = {}, {}
+        for n, g, w in zip(names, got, want):
+            errs[n] = float((g.float() - w.float()).abs().max())
+            tols[n] = kd.plain_tol(w.float(), g.dtype)
+        equal = all(bool(torch.equal(g, a)) for g, a in zip(got, again))
+        if not equal or any(errs[n] > tols[n] for n in names):
+            raise AssertionError(f"train D backward at the step's shapes:"
+                                 f" errors {errs} (tolerances {tols}),"
+                                 f" equal bits {equal}")
+        stream = torch.cuda.current_stream().cuda_stream
+        gx = [torch.empty_like(t) for t in args]
+
+        def bare():
+            for _ in range(TRAIN_D_BWD_LAUNCHES):
+                kd.launch_bwd(*args, gy, gs, *gx, chunk, stream=stream)
+
+        ms = _median_ms(bare, torch)
+        parts = self._bwd_parts(
+            lambda: kd.launch_bwd(*args, gy, gs, *gx, chunk, stream=stream))
+        call_ms = _median_ms(
+            lambda: [kd.ssd_scan_bwd_kernel(*args, gy, None, chunk=chunk)
+                     for _ in range(TRAIN_D_BWD_LAUNCHES)], torch, spin=False)
+        kd.ssd_scan_bwd_plain(*args, gy, gs, chunk=chunk)
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(TRAIN_D_BWD_LAUNCHES):
+            kd.ssd_scan_bwd_plain(*args, gy, gs, chunk=chunk)
+        e.record()
+        e.synchronize()
+        row = dict(cell=f"D backward at the step's shapes {tuple(x.shape)}"
+                   f" {x.dtype}", launches=TRAIN_D_BWD_LAUNCHES,
+                   grad_max_abs_err=errs, grad_tol=tols, equal_bits=equal,
+                   max_abs_err=max(errs.values()), ms=ms, call_ms=call_ms,
+                   plain_ms=a.elapsed_time(e), parts_ms_a_launch=parts,
+                   **self.bwd_bound(args, chunk, TRAIN_D_BWD_LAUNCHES))
+        self._print(row)
+        self.summary["d_bwd_train_shape"] = row
+
+    def _bwd_parts(self, launch) -> dict:
+        """Device ms a launch of each of the backward's six kernels, by
+        ``torch.profiler`` over ``TRAIN_BWD_PROFILED`` calls of
+        ``launch``; empty where the profiler records no device time."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        launch()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRAIN_BWD_PROFILED):
+                launch()
+            torch.cuda.synchronize()
+        parts = {}
+        for ev in prof.key_averages():
+            t = (getattr(ev, "device_time_total", 0)
+                 or getattr(ev, "cuda_time_total", 0))
+            name = re.search(r"bwd_\w+", ev.key)
+            if t and name:
+                parts[name.group(0)] = t / TRAIN_BWD_PROFILED / 1e3
+        return parts
+
+    def bwd_bound(self, args, chunk, calls) -> dict:
+        """The least time of ``calls`` backward launches on ``args``.  Per
+        chunk and sequence, over the Q(Q+1)/2 pairs k <= q: the scores
+        ``C B^T`` once (2 N a pair), their head-summed gradient against B
+        and C (4 N), and per head ``dy x^T`` and ``G^T dy`` (2 P each),
+        then per head five state products of 2 Q P N (the chunk's own
+        state and adjoint, ``dh B``, the state terms of dC and dB; the
+        carried state's term of the decay's gradient,
+        ``dy[q] . (exp(cums[q]) h_in C[q])``, is ``exp(cums[q]) C[q]``
+        dotted with dC's per-head state term ``h_in^T dy[q]``, Q N a head),
+        each once, at the peak rate of x's type;
+        against x, gy, dx, B, C, dB, dC, dt, ddt, A, dA, D, dD read or
+        written once at the HBM rate.  ``ops_ms_f32`` prices the same
+        FLOPs at the float32 rate the kernel's FMAs run at."""
+        x, dt, A, B, C, D = args
+        b, S, H, P = x.shape
+        N, Q = B.shape[-1], chunk
+        tri = Q * (Q + 1) // 2
+        flops = calls * 2 * b * (S // Q) * (
+            3 * tri * N + H * (2 * tri * P + 5 * Q * P * N))
+        nbytes = calls * (3 * x.numel() * x.element_size()
+                          + 4 * B.numel() * B.element_size()
+                          + 2 * (dt.numel() + A.numel() + D.numel()) * 4)
+        dtype = str(x.dtype).removeprefix("torch.")
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+        return dict(bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
+                    ops_ms=ops_ms,
+                    ops_ms_f32=flops / PEAK_FLOPS["float32"] * 1e3,
+                    gflop_per_call=flops / calls / 1e9,
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
     def card_vs_cpu(self) -> dict:
         """Check 3: Mamba-2-780m at full width and ``TRAIN_CUT_LAYERS``
         layers, f32, two ``make_train_step`` steps from the same params on
@@ -3059,8 +3217,10 @@ class TrainPhase(Lm):
                     p, state, loss = step_fn(p, state, batch)
                     losses.append(float(loss))
                     ms.append((time.perf_counter() - t0) * 1e3)
-                    want = 2 * cfg.n_layers if dev == self.device else 0
-                    if self._counts() != self._expect(want):
+                    on_card = dev == self.device
+                    want = self._expect(2 * cfg.n_layers if on_card else 0,
+                                        bwd=cfg.n_layers if on_card else 0)
+                    if self._counts() != want:
                         raise AssertionError(f"train card vs CPU ({dev}):"
                                              f" launch counts {self._counts()}")
             finally:
@@ -3087,7 +3247,8 @@ class TrainPhase(Lm):
                    card_losses=card["losses"], cpu_losses=host["losses"],
                    card_ms=card["ms"], cpu_ms=host["ms"],
                    worst_grad_leaf=worst[1], worst_grad_rel_err=worst[0],
-                   launches_per_step=2 * cfg.n_layers)
+                   launches_per_step=2 * cfg.n_layers,
+                   bwd_launches_per_step=cfg.n_layers)
         self._print(row)
         self.summary["card_vs_cpu_f32"] = row
         return row
@@ -3129,7 +3290,8 @@ class TrainPhase(Lm):
         layers (global ``TRAIN_HY_GLOBAL``, the rest sliding), bf16, two
         train steps of 2 x 4096 through the repaired chunked attention:
         losses finite, every leaf's gradient finite and not all zero, D's
-        launches a step counted (a layer's forward and its recompute)."""
+        launches a step counted (a layer's forward and its recompute), and
+        its backward's (one a layer, at Hymba's state of 16)."""
         import dataclasses
 
         from repro_torch.checkpoint.checkpointer import leaf_paths
@@ -3157,7 +3319,8 @@ class TrainPhase(Lm):
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
                 losses.append(float(loss))
-                if self._counts() != self._expect(2 * cfg.n_layers):
+                if self._counts() != self._expect(2 * cfg.n_layers,
+                                                  bwd=cfg.n_layers):
                     raise AssertionError(f"train hymba step {i}: launch counts"
                                          f" {self._counts()}")
         finally:
@@ -3173,7 +3336,8 @@ class TrainPhase(Lm):
                    losses=losses, step_ms=ms,
                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                    leaves=len(leaf_paths(kept[0])),
-                   launches_per_step=2 * cfg.n_layers)
+                   launches_per_step=2 * cfg.n_layers,
+                   bwd_launches_per_step=cfg.n_layers)
         self._print(row)
         self.summary["hymba_bf16"] = row
         return row
@@ -3205,9 +3369,9 @@ class TrainPhase(Lm):
         self.summary["cli"] = row
         return row
 
-    def run(self) -> dict:
-        """The six checks; returns kernel D's training entry of the
-        kernels line."""
+    def run(self) -> tuple[dict, dict]:
+        """The six checks; returns kernel D's and its backward's training
+        entries of the kernels line."""
         from repro_torch.kernels.ssd_scan import ssd_scan as kd
 
         t0 = time.perf_counter()
@@ -3220,7 +3384,8 @@ class TrainPhase(Lm):
         self.summary["seconds"] = time.perf_counter() - t0
         print(f"phase train: {self.summary['seconds']:.1f} s", flush=True)
         k = self.summary["d_train_shape"]
-        return dict(
+        kb = self.summary["d_bwd_train_shape"]
+        fwd = dict(
             name=f"{kd.SSD_SCAN.symbol}@{self.ARCH}_train",
             path=f"{self.ARCH} train step", route="cuda",
             source=kd.SSD_SCAN.source, replaces=kd.SSD_SCAN.replaces,
@@ -3229,10 +3394,24 @@ class TrainPhase(Lm):
                             d["y_max_abs_err"], d["state_max_abs_err"]),
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], ops_ms_f32=k["ops_ms_f32"],
-            fwd_call_ms=step["ssd_fwd_ms"], plain_bwd_ms=step["ssd_bwd_ms"],
+            fwd_call_ms=step["ssd_fwd_ms"],
             # no single PyTorch call computes the SSD chunk scan
             library_ms=None,
         )
+        bwd = dict(
+            name=f"{kd.SSD_SCAN_BWD.symbol}@{self.ARCH}_train",
+            path=f"{self.ARCH} train step", route="cuda",
+            source=kd.SSD_SCAN_BWD.source, replaces=kd.SSD_SCAN_BWD.replaces,
+            launches=step["bwd_launches"],
+            max_abs_err=kb["max_abs_err"], ms=kb["ms"],
+            call_ms=kb["call_ms"], plain_ms=kb["plain_ms"],
+            bound_ms=kb["bound_ms"], bound_by=kb["bound_by"],
+            ops_ms_f32=kb["ops_ms_f32"], step_call_ms=step["ssd_bwd_ms"],
+            parts_ms_a_launch=kb["parts_ms_a_launch"],
+            # no single PyTorch call computes the SSD scan's gradient
+            library_ms=None,
+        )
+        return fwd, bwd
 
 
 # ---- phase plan -----------------------------------------------------------
@@ -4548,8 +4727,9 @@ def _forward_ms(run, *, eager: bool = False) -> float:
 
 
 def print_build_report(reports, fc, device) -> None:
-    """The pyramid kernels', the SOP kernel's and the SSD scan's ptxas
-    lines (entry, registers, stack and spills) from this run's build; each
+    """The pyramid kernels', the SOP kernel's and the SSD scan's and its
+    backward's ptxas lines (entry, registers, stack and spills) from this
+    run's build; each
     pyramid kernel's co-resident block count per dtype (the grid of its
     cooperative launch) and the SSD scan's blocks a SM per instance at the
     Mamba-2 and Hymba models' head width, state and chunk."""
@@ -4558,7 +4738,7 @@ def print_build_report(reports, fc, device) -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd_scan import ssd_scan as kd
 
-    for lib in ("fused_pyramid", "online_sop", "ssd_scan"):
+    for lib in ("fused_pyramid", "online_sop", "ssd_scan", "ssd_scan_bwd"):
         for line in reports.get(lib, "").splitlines():
             if any(w in line for w in ("Compiling entry", "registers",
                                        "spill")):
@@ -4639,7 +4819,7 @@ def main(argv=None) -> int:
         vlm = VlmPhase(torch, device).run()
         torch.cuda.empty_cache()
         train = TrainPhase(torch, device)
-        ssd_train = train.run()
+        ssd_train, ssd_bwd_train = train.run()
         torch.cuda.empty_cache()
         plan = PlanPhase(torch, device, lm=lm.summary, hybrid=hybrid.summary,
                          moe=moe, train=train.summary).run()
@@ -4670,6 +4850,7 @@ def main(argv=None) -> int:
         kernels.append(ssd)
         kernels.append(ssd_hybrid)
         kernels.append(ssd_train)
+        kernels.append(ssd_bwd_train)
         if args.out is not None:
             args.out.parent.mkdir(parents=True, exist_ok=True)
             args.out.write_text(json.dumps(dict(

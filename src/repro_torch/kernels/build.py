@@ -41,6 +41,7 @@ SOURCES: dict[str, str] = {
     "fused_pyramid": "fused_pyramid.cu",
     "online_sop": "online_sop.cu",
     "ssd_scan": "ssd_scan.cu",
+    "ssd_scan_bwd": "ssd_scan_bwd.cu",
 }
 
 NVCC_FLAGS: tuple[str, ...] = (

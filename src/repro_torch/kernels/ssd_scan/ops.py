@@ -9,14 +9,16 @@ nothing, so the final state is exact) and exposes the signature of
 
 The kernel runs inside :class:`SsdScan`, a ``torch.autograd.Function``, so
 that a training step differentiates through it.  Its forward is
-:func:`~.ssd_scan.ssd_scan_kernel`: the CUDA launch on the card, the plain
-version on the CPU.  Its backward is plain by design: the reference has
-no backward kernel (it trains through the pure-jnp ``ssd_chunked``), so
-:func:`ssd_scan_vjp` recomputes :func:`~.ssd_scan.ssd_scan_plain` from the
-saved inputs under autograd and returns its vector-Jacobian product.  A
-failed build or launch raises in the forward as it does without autograd;
-when no input wants a gradient, autograd records nothing and keeps
-nothing.
+:func:`~.ssd_scan.ssd_scan_kernel` and its backward
+:func:`~.ssd_scan.ssd_scan_bwd_kernel`: on the card the CUDA launches of
+kernel D and of its backward kernel, on the CPU their plain versions.  A
+failed build or launch raises, in either direction; nothing falls back to
+a plain version on the card.  When no input wants a gradient, autograd
+records nothing and keeps nothing.
+
+:func:`ssd_scan_vjp` (autograd through the plain forward) is the oracle
+the tests and ``chip_smoke.py`` hold the backward against; no path of the
+port calls it.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .ssd_scan import ssd_scan_kernel, ssd_scan_plain
+from .ssd_scan import ssd_scan_bwd_kernel, ssd_scan_kernel, ssd_scan_plain
 
 
 def ssd_scan_vjp(inputs, chunk: int, needs, gy, gstate):
@@ -44,8 +46,8 @@ def ssd_scan_vjp(inputs, chunk: int, needs, gy, gstate):
 
 
 class SsdScan(torch.autograd.Function):
-    """Kernel D with a plain backward: ``apply(x, dt, A, B, C, D, chunk)``
-    -> ``(y, state)`` as :func:`~.ssd_scan.ssd_scan_kernel`."""
+    """Kernel D and its backward kernel: ``apply(x, dt, A, B, C, D,
+    chunk)`` -> ``(y, state)`` as :func:`~.ssd_scan.ssd_scan_kernel`."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, D, chunk):
@@ -58,9 +60,10 @@ class SsdScan(torch.autograd.Function):
     def backward(ctx, gy, gstate):
         if gy is None and gstate is None:
             return (None,) * 7
-        grads = ssd_scan_vjp(ctx.saved_tensors, ctx.chunk,
-                             ctx.needs_input_grad[:6], gy, gstate)
-        return (*grads, None)
+        inputs = ctx.saved_tensors
+        grads = ssd_scan_bwd_kernel(*inputs, gy, gstate, chunk=ctx.chunk)
+        return (*(g.to(t.dtype) if n else None for g, t, n in
+                  zip(grads, inputs, ctx.needs_input_grad)), None)
 
 
 def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 64

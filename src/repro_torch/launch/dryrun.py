@@ -42,7 +42,8 @@ full-depth shards, never fitted; the liveness peak and the traffic proxy
 are fitted too and are estimates.
 
 **Memory.**  The liveness walk frees a tensor at its last use, as a
-compiler's schedule would; PyTorch's eager step holds more (a Python
+compiler's schedule would, and holds a kernel's own workspace (kernel D's
+backward's) while its op runs; PyTorch's eager step holds more (a Python
 reference lives to the end of its scope).  On the card the measured peak
 came out up to :data:`HBM_MARGIN` times the walk's total (the Mamba-2-780m
 train step), so ``fits_hbm`` asks that the total times that margin fit,

@@ -9,10 +9,11 @@ same kind serves, an AOTAutograd one included).  So, as in the reference,
 every output is a per-device quantity:
 
 * dot FLOPs: ``torch.utils.flop_counter``'s formula registry applied to
-  each node's fake arguments (matmuls, convolutions, attention, and kernel
+  each node's fake arguments (matmuls, convolutions, attention, kernel
   D's custom op ``repro_torch::ssd_scan``, whose formula counts the plain
-  chunked SSD's dots), so a ``FlopCounterMode`` on the card and this
-  analysis count alike;
+  chunked SSD's dots, and its backward's ``repro_torch::ssd_scan_bwd``,
+  whose formula counts the backward kernel's), so a ``FlopCounterMode``
+  on the card and this analysis count alike;
 * collective bytes ON WIRE per device, on the reference's ring model with
   group size g and S the collective's result bytes: all-reduce
   ``2*S*(g-1)/g``, all-gather ``S*(g-1)/g``, reduce-scatter ``S*(g-1)``,
@@ -176,11 +177,25 @@ def output_bytes(graph) -> int:
                                      for a in out.all_input_nodes)
 
 
+def scratch_bytes(node) -> int:
+    """Bytes a node's kernel allocates for itself and frees before it
+    returns, beside its outputs: the float32 workspace of kernel D's
+    backward (``repro_torch::ssd_scan_bwd``); 0 for every other node."""
+    if node.op != "call_function" or _op_name(node.target) != "ssd_scan_bwd":
+        return 0
+    from repro_torch.kernels.ssd_scan.ssd_scan import (
+        ssd_scan_bwd_workspace_bytes)
+
+    x, B = _val(node.args[0]), _val(node.args[3])
+    return ssd_scan_bwd_workspace_bytes(x.shape, B.shape, node.args[8])
+
+
 def peak_live_bytes(graph) -> int:
     """The most bytes live at once over a walk of ``graph`` in its order:
     each non-view node's output is allocated where it is computed and
-    freed after its last use (a view keeps its base alive); inputs
-    (placeholders) are not counted and graph outputs live to the end."""
+    freed after its last use (a view keeps its base alive), and its
+    :func:`scratch_bytes` live while it runs; inputs (placeholders) are
+    not counted and graph outputs live to the end."""
     graph = getattr(graph, "graph", graph)
     nodes = list(graph.nodes)
     base: dict = {}  # node -> the allocating node it aliases
@@ -208,7 +223,7 @@ def peak_live_bytes(graph) -> int:
     for i, n in enumerate(nodes):
         if size.get(n):
             live += size[n]
-            peak = max(peak, live)
+            peak = max(peak, live + scratch_bytes(n))
             if n not in last:  # never used: freed at once
                 live -= size[n]
         for b in free_at.get(i, ()):

@@ -6,9 +6,10 @@ Listing-1 decomposition) and an O(1)-per-token recurrent step for decode.
 
 The port's :func:`mamba2_mixer` runs its prefill SSD through
 :func:`repro_torch.kernels.ssd_scan.ops.ssd_scan` (the hand-written CUDA
-chunk scan on the card, its plain version on the CPU) where the reference calls
-the pure-jnp :func:`ssd_chunked`: the swap the reference's ``ssd_scan``
-was written for, same signature, same padding.  :func:`ssd_chunked` is kept
+chunk scan on the card, its plain version on the CPU; in training its
+hand-written backward too) where the reference calls the pure-jnp
+:func:`ssd_chunked`: the swap the reference's ``ssd_scan`` was written
+for, same signature, same padding.  :func:`ssd_chunked` is kept
 as it is: the tests hold the mixer's prefill against the mixer with
 :func:`ssd_chunked` in the kernel's place, and the kernel on the card
 against it.

@@ -166,10 +166,13 @@ def _ssd_inputs(b, S, H, P, N, seed):
 
 
 def test_ssd_function_equals_plain_autograd():
-    """At a chunk multiple the Function's forward is ``ssd_scan_plain``
-    (on the CPU) and its backward recomputes it: ``y``, the state and all
-    six input gradients equal plain autograd's bit for bit, with upstream
-    gradients for both outputs."""
+    """At a chunk multiple the Function's forward is ``ssd_scan_plain`` (on
+    the CPU): ``y`` and the state equal plain autograd's bit for bit.  Its
+    backward is the backward kernel's plain version, a different formula:
+    with upstream gradients for both outputs, each input's float32
+    gradient lies within 4 times plain float32 autograd's own error
+    against float64 autograd, plus 1e-6 of the gradient's magnitude (the
+    same float32 terms summed in other orders)."""
     args = _ssd_inputs(2, 32, 3, 8, 4, 0)
     rng = np.random.default_rng(9)
     gy = torch.tensor(rng.normal(0, 1, (2, 32, 3, 8)), dtype=torch.float32)
@@ -177,12 +180,19 @@ def test_ssd_function_equals_plain_autograd():
     y, state = ops.ssd_scan(*args, chunk=8)
     got = torch.autograd.grad((y, state), args, (gy, gs))
     py, ps = kd.ssd_scan_plain(*args, chunk=8)
-    want = torch.autograd.grad((py, ps), args, (gy, gs))
+    plain = torch.autograd.grad((py, ps), args, (gy, gs))
     assert torch.equal(y, py) and torch.equal(state, ps)
     assert y.grad_fn is not None
-    for name, a, b in zip(("x", "dt", "A", "B", "C", "D"), got, want):
+    a64 = [t.detach().double().requires_grad_() for t in args]
+    y64, s64 = kd.ssd_scan_plain(*a64, chunk=8)
+    want = torch.autograd.grad((y64, s64), a64, (gy.double(), gs.double()))
+    for name, a, p, w in zip(("x", "dt", "A", "B", "C", "D"), got, plain,
+                             want):
         assert a is not None, f"no gradient for {name}"
-        assert torch.equal(a, b), name
+        err = float((a.double() - w).abs().max())
+        limit = kd.f64_tol(float((p.double() - w).abs().max()),
+                           float(w.abs().max()))
+        assert err <= limit, (name, err, limit)
 
 
 def _padded_chunked(x, dt, A, B, C, D, *, chunk):
