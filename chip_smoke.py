@@ -186,7 +186,7 @@ Function.  Phases, any failure exits non-zero:
    bounded; D's backward at the step's shapes (a random bf16 gradient of
    y, none of the state) against ``ssd_scan_bwd_plain`` (``plain_tol`` at
    each gradient's type), twice equal bit for bit, its 96 launches timed
-   bare and as wrapper calls, its six kernels' device times by
+   bare and as wrapper calls, its eight kernels' device times by
    ``torch.profiler``, the plain version's 96 calls, the bound.
    Then at full width and 4 of
    48 layers, f32, 2 x 512 tokens: two steps on the card against the same
@@ -3131,7 +3131,7 @@ class TrainPhase(Lm):
         self.summary["d_bwd_train_shape"] = row
 
     def _bwd_parts(self, launch) -> dict:
-        """Device ms a launch of each of the backward's six kernels, by
+        """Device ms a launch of each of the backward's kernels, by
         ``torch.profiler`` over ``TRAIN_BWD_PROFILED`` calls of
         ``launch``; empty where the profiler records no device time."""
         from torch.profiler import ProfilerActivity, profile

@@ -339,25 +339,52 @@ def _(x, dt, A, B, C, D, gy, gstate, chunk):
 
 
 def ssd_scan_bwd_workspace_bytes(x_shape, B_shape, chunk: int) -> int:
-    """Bytes of the float32 workspace one backward launch over
-    ``x (b,S,H,P)`` and ``B (b,S,N)`` at ``chunk`` allocates and frees
-    before it returns: the layout of ``ws_layout`` in
-    ``csrc/ssd_scan_bwd.cu`` (cumulative decays, entry states, exit
-    adjoints, scores and their head sums on tiles of 64, partial sums of
-    dA and dD), written out here so that a dry run counts it without the
-    kernel's build.  :func:`launch_bwd` checks it against the C entry's
-    size at every launch."""
+    """Bytes of the workspace one backward launch over ``x (b,S,H,P)`` and
+    ``B (b,S,N)`` at ``chunk`` allocates and frees before it returns: the
+    layout of ``ws_layout`` in ``csrc/ssd_scan_bwd.cu``, written out here
+    so that a dry run counts it without the kernel's build.  Float32
+    cumulative decays, own (then entry) states and adjoints, scores and
+    their head sums on tiles of 64, partial sums of dA and dD; then the
+    bf16 instance's sections: partial sums of <dh, h_in> (one a warp of
+    the scan, which takes two state elements a thread where N is even),
+    the carried state's term (one array a
+    128-column pass of N), the entry states' and exit adjoints' three bf16
+    parts, the dC/dB kernels' partial sums (four head groups, in the
+    float32 states' room where they fit) and, where P or N is not a
+    multiple of 8, zero-padded copies of x, gy, B and C.
+    :func:`launch_bwd` checks it against the C entry's size at every
+    launch."""
     b, S, H, P = x_shape
     N = B_shape[-1]
     nc, qp = S // chunk, -(-chunk // 64) * 64
+    groups = 4  # kBcGroups
 
     def align4(v):
         return -(-v // 4) * 4
 
+    def align64(v):
+        return -(-v // 64) * 64
+
+    units, bS = b * nc * H, b * S
+    n8, p8 = -(-N // 8) * 8, -(-P // 8) * 8
+    vec = 2 if N % 2 == 0 else 1  # state elements a scan thread
+    nhd, npass = -(-(P * N // vec) // 256) * 8, -(-n8 // 128)
     hin = align4(b * S * H)
-    dh = align4(hin + b * nc * H * P * N)
-    sc = align4(dh + b * nc * H * P * N)
-    return 4 * (sc + 2 * b * nc * qp * qp + 2 * b * nc * H)
+    dh = align4(hin + units * P * N)
+    sc = align4(dh + units * P * N)
+    pd = sc + 2 * b * nc * qp * qp + b * nc * H
+    hd = align64(pd + b * nc * H)
+    car = align64(hd + units * nhd)
+    parts = (3 * units * P * n8 + 1) // 2
+    ph = align64(car + npass * bS * H)
+    pdh = align64(ph + parts)
+    end = align64(pdh + parts)
+    if groups * 2 * bS * n8 > sc - hin:
+        end = align64(end + groups * 2 * bS * n8)
+    if P % 8 or N % 8:
+        end += 2 * align64((bS * H * p8 + 1) // 2) + 2 * align64(
+            (bS * n8 + 1) // 2)
+    return 4 * end
 
 
 def ssd_scan_bwd_flops(x_shape, B_shape, chunk: int) -> int:
@@ -369,7 +396,9 @@ def ssd_scan_bwd_flops(x_shape, B_shape, chunk: int) -> int:
     the decay's gradient, once summed over the heads), ``G^T dy`` (``3
     2TP``), and six state products of ``2QPN`` each: the chunk's own state
     and adjoint, the carried state's part of y, ``dh B``, and the state
-    terms of ``dC`` and ``dB``."""
+    terms of ``dC`` and ``dB`` (the float32 instance's count; the bf16
+    instance takes the carried part from dC's state term, and runs every
+    float32 operand in two or three bf16 parts besides)."""
     b, S, H, P = x_shape
     N = B_shape[-1]
     Q = chunk
@@ -410,6 +439,10 @@ def launch_bwd(x, dt, A, B, C, D, gy, gstate, dx, ddt, dA, dB, dC, dD,
             f"the backward's workspace is {nbytes} bytes in the C entry and"
             f" {ssd_scan_bwd_workspace_bytes(x.shape, B.shape, chunk)} in"
             " ssd_scan_bwd_workspace_bytes")
+    if x.dtype == torch.bfloat16:
+        # TMA reads x, gy, B and C from bases on 16 bytes
+        x, B, C, gy = (t if t.data_ptr() % 16 == 0 else t.clone()
+                       for t in (x, B, C, gy))
     ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     SSD_SCAN_BWD.call(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                       B.data_ptr(), C.data_ptr(), D.data_ptr(), gy.data_ptr(),

@@ -149,10 +149,16 @@ def _check_bwd_against_plain(padded, gy, gs, ch):
 
 # (b, S, H, P, N), chunk: the model's head and state with a ragged S; a
 # chunk of 100 rows (not a multiple of the 64-row tile); Hymba's state of
-# 16 at its head; P and N odd; a narrow head; one chunk of 16
+# 16 at its head; P and N odd; a narrow head; one chunk of 16.  The bf16
+# instance stages through TMA where P and N are multiples of 8, and copies
+# x, gy, B and C into padded rows first where they are not (P 13 / N 20,
+# P 12, N 20); N 200 takes two 128-column passes of the dC, dB and states
+# kernels.
 BWD_SHAPES = [((2, 300, 5, 64, 128), 256), ((1, 100, 3, 64, 128), 256),
               ((2, 512, 4, 64, 16), 256), ((1, 130, 2, 13, 20), 64),
-              ((3, 100, 4, 8, 16), 64), ((3, 16, 5, 64, 128), 256)]
+              ((3, 100, 4, 8, 16), 64), ((3, 16, 5, 64, 128), 256),
+              ((2, 256, 3, 12, 32), 64), ((2, 256, 3, 64, 20), 128),
+              ((1, 512, 2, 64, 200), 256)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -184,14 +190,24 @@ def test_bwd_kernel_on_cancelling_and_slowly_decaying_inputs(cuda, case,
     _check_bwd_against_plain(*_bwd_args(args, 256, 5, cuda))
 
 
+# the model's head and state (TMA), Hymba's state of 16 (TMA), a chunk of
+# 100 rows, P 13 and N 20 (the padded copies)
+BITS_SHAPES = [((2, 1024, 8, 64, 128), 256), ((2, 512, 4, 64, 16), 256),
+               ((1, 200, 3, 64, 128), 100), ((1, 130, 2, 13, 20), 64)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_bwd_kernel_gives_equal_bits_twice(cuda, dtype):
-    """No float atomics: two launches on the same inputs at the model's
-    head and state give the same bits, and a bare launch into buffers made
-    beforehand (as ``chip_smoke.py`` times it) gives the wrapper's."""
-    args = _inputs(2, 1024, 8, 64, 128, dtype, 9, cuda)
-    padded, gy, gs, ch = _bwd_args(args, 256, 11, cuda)
+@pytest.mark.parametrize("shape,chunk", BITS_SHAPES,
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else str(v))
+def test_bwd_kernel_gives_equal_bits_twice(cuda, shape, chunk, dtype):
+    """No float atomics: two launches on the same inputs give the same
+    bits, and a bare launch into buffers made beforehand (as
+    ``chip_smoke.py`` times it) gives the wrapper's, on both staging
+    routes."""
+    args = _inputs(*shape, dtype, 9, cuda)
+    padded, gy, gs, ch = _bwd_args(args, chunk, 11, cuda)
     first = kd.ssd_scan_bwd_kernel(*padded, gy, gs, chunk=ch)
     second = kd.ssd_scan_bwd_kernel(*padded, gy, gs, chunk=ch)
     prepared = kd.prepare(*padded, ch)

@@ -280,11 +280,12 @@ def test_bwd_op_traces_on_fake_and_meta_tensors():
 
 def test_liveness_holds_the_backward_workspace_while_the_op_runs(
         monkeypatch):
-    """The dry run's liveness walk adds D's backward's float32 workspace
-    (cumulative decays, entry states and exit adjoints, scores and their
-    head sums on 64 x 64 tiles, partial sums) at the op's node, and only
-    there; here, where that workspace is the largest buffer, the peak
-    rises by exactly its size."""
+    """The dry run's liveness walk adds D's backward's workspace
+    (cumulative decays, entry states and exit adjoints in float32 and as
+    bf16 parts, scores and their head sums on 64 x 64 tiles, partial sums)
+    at the op's node, and only there; here, where that workspace is the
+    largest buffer, the peak rises by exactly its size, which
+    ``ssd_scan_bwd_workspace_bytes`` gives as the kernel lays it out."""
     from torch.fx.experimental.proxy_tensor import make_fx
     from repro_torch.launch import graphanalysis as GA
 
@@ -297,8 +298,15 @@ def test_liveness_holds_the_backward_workspace_while_the_op_runs(
 
     g = make_fx(bwd, tracing_mode="fake")(*ins)
     nc = S // Q
-    ws = 4 * (b * S * H + 2 * b * nc * H * P * N + 2 * b * nc * 64 * 64
-              + 2 * b * nc * H)
+    units = b * nc * H
+    f32 = b * S * H + 2 * units * P * N + 2 * b * nc * 64 * 64 + 2 * units
+    # the bf16 instance's sections: <dh, h_in>'s partial sums (the scan's
+    # eight warps: one block of 256 threads, two elements each), the
+    # carried term (one 128-column pass), the states' three bf16 parts
+    # twice; the dC/dB partial sums (4 groups x 2 x b S N) fit in the
+    # float32 states' room
+    assert 4 * 2 * b * S * N <= 2 * units * P * N
+    ws = 4 * (f32 + 8 * units + b * S * H + 2 * 3 * units * P * N // 2)
     assert kd.ssd_scan_bwd_workspace_bytes((b, S, H, P), (b, S, N), Q) == ws
     assert [GA.scratch_bytes(n) for n in g.graph.nodes
             if GA.scratch_bytes(n)] == [ws]
@@ -355,11 +363,17 @@ def _parts(t, k):
 
 
 def _bwd_with_parts(x, dt, A, B, C, D, gy, gs, *, chunk, state_parts,
-                    g_parts):
-    """``(dx, ddt)`` by ``ssd_scan_bwd_plain``'s algorithm with the entry
-    states and exit adjoints cut to ``state_parts`` where the bf16 chunk
-    kernel multiplies them on the tensor cores (the carried term and dh
-    B), and G to ``g_parts`` in G^T dy."""
+                    g_parts, carried="dc", dc_parts=3, db_parts=2,
+                    m_parts=2):
+    """``(dx, ddt, dB, dC)`` by ``ssd_scan_bwd_plain``'s algorithm with the
+    bf16 kernels' cut.  The scan cuts the entry states and exit adjoints
+    once; the chunk kernel multiplies dh in ``state_parts`` (dh B), G^T in
+    ``g_parts`` (G^T dy, from registers).  The carried state's term of
+    dcums is ``exp(cums) C . (h_in^T dy)`` from dC's per-head state term,
+    h_in in ``dc_parts`` (``carried="dc"``, the dC kernel's), or
+    ``dy . exp(cums) h_in C`` with h_in in ``state_parts`` (``"y"``, a
+    product of its own).  dC's state term takes h_in in ``dc_parts``,
+    dB's dh in ``db_parts``, M's products M in ``m_parts``."""
     b, S, H, P = x.shape
     N, Q = B.shape[-1], chunk
     nc = S // Q
@@ -380,10 +394,11 @@ def _bwd_with_parts(x, dt, A, B, C, D, gy, gs, *, chunk, state_parts,
         dh[:, c], d = d, torch.exp(cl[:, c])[..., None, None] * d + adj[:, c]
     above = ~torch.ones(Q, Q, dtype=torch.bool).tril()
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
     for c in range(nc):
         cq, xk, xbk, dyk, Bk, Ck = cums[:, c], x[:, c], xb[:, c], dy[:, c], \
             B[:, c], C[:, c]
-        hk, dhk = _parts(h_in[:, c], state_parts), _parts(dh[:, c], state_parts)
+        dhk = _parts(dh[:, c], state_parts)
         L = torch.exp((cq[:, :, None] - cq[:, None]).masked_fill(
             above[None, :, :, None], float("-inf")))
         G = L * (Ck @ Bk.transpose(1, 2))[..., None]
@@ -391,14 +406,27 @@ def _bwd_with_parts(x, dt, A, B, C, D, gy, gs, *, chunk, state_parts,
         dxb = torch.einsum("bqkh,bqhp->bkhp", _parts(G, g_parts), dyk) + \
             w[:, c][..., None] * v
         dx[:, c] = dt[:, c][..., None] * dxb + D[:, None] * dyk
-        dGG = torch.einsum("bqhp,bkhp->bqkh", dyk, xbk) * G
-        yo = torch.einsum("bqn,bhpn->bqhp", Ck, hk) * ec[:, c][..., None]
+        dG = torch.einsum("bqhp,bkhp->bqkh", dyk, xbk)
+        dGG = dG * G
+        u = torch.einsum("bqhp,bhpn->bqhn", dyk, _parts(h_in[:, c], dc_parts))
+        if carried == "dc":
+            car = torch.einsum("bqn,bqhn->bqh", Ck, u) * ec[:, c]
+        else:
+            yo = torch.einsum("bqn,bhpn->bqhp", Ck,
+                              _parts(h_in[:, c], state_parts))
+            car = (dyk * yo).sum(-1) * ec[:, c]
         wdw = w[:, c] * (xbk * v).sum(-1)
-        dcums = dGG.sum(2) - dGG.sum(1) + (dyk * yo).sum(-1) - wdw
+        dcums = dGG.sum(2) - dGG.sum(1) + car - wdw
         dcums[:, -1] += wdw.sum(1) + torch.exp(cl[:, c]) * (
             dh[:, c] * h_in[:, c]).sum((-1, -2))
         ddt[:, c] = (xk * dxb).sum(-1) + A * dcums.flip(1).cumsum(1).flip(1)
-    return dx.reshape(b, S, H, P), ddt.reshape(b, S, H)
+        M = _parts((dG * L).sum(-1), m_parts)
+        dC[:, c] = M @ Bk + torch.einsum("bqh,bqhn->bqn", ec[:, c], u)
+        dB[:, c] = M.transpose(1, 2) @ Ck + torch.einsum(
+            "bkh,bkhp,bhpn->bkn", w[:, c] * dt[:, c], xk,
+            _parts(dh[:, c], db_parts))
+    return (dx.reshape(b, S, H, P), ddt.reshape(b, S, H),
+            dB.reshape(b, S, N), dC.reshape(b, S, N))
 
 
 def _parts_inputs(case):
@@ -430,14 +458,39 @@ def test_the_bf16_kernels_parts_hold_ddt_and_dx(case):
     want = kd.ssd_scan_bwd_plain(*(t.float() for t in args), gy.float(), gs,
                                  chunk=256)
     dx, ddt = _bwd_with_parts(*args, gy, gs, chunk=256, state_parts=3,
-                              g_parts=2)
+                              g_parts=2, carried="y")[:2]
     assert _rel(ddt, want[1]) <= PARTS_RTOL, _rel(ddt, want[1])
     assert _rel(dx, want[0]) <= PARTS_RTOL, _rel(dx, want[0])
     if case == "state":
-        _, ddt2 = _bwd_with_parts(*args, gy, gs, chunk=256, state_parts=2,
-                                  g_parts=2)
+        ddt2 = _bwd_with_parts(*args, gy, gs, chunk=256, state_parts=2,
+                               g_parts=2, carried="y")[1]
         assert _rel(ddt2, want[1]) > PARTS_RTOL, _rel(ddt2, want[1])
     if case == "keys":
-        _, ddt1 = _bwd_with_parts(*args, gy, gs, chunk=256, state_parts=3,
-                                  g_parts=1)
+        ddt1 = _bwd_with_parts(*args, gy, gs, chunk=256, state_parts=3,
+                               g_parts=1, carried="y")[1]
         assert _rel(ddt1, want[1]) > 1e-4, _rel(ddt1, want[1])
+
+
+@pytest.mark.parametrize("case", ["keys", "state", "slow"])
+def test_the_wgmma_kernels_cut_holds_every_gradient(case):
+    """The cut of the wgmma kernels: the states cut into three parts once,
+    by the scan; the carried state's term of dcums taken from dC's
+    per-head state term h_in^T dy (h_in in three parts) rather than from a
+    product of its own; G^T's two parts as the register operand of
+    G^T dy; M and dh in two parts for dC and dB.  On the cancelling and
+    slowly decaying inputs ddt and dx stay within 1e-4 of their magnitude
+    (``plain_tol``'s float32 share; observed: at most 1.4e-6), dB and dC
+    too (at most 5.3e-6 and 5.4e-5, far inside the 2^-7 a bf16 dB or dC
+    may take besides), and the carried term's new order moves ddt by less
+    than ``PARTS_RTOL`` (at most 3.5e-8) against a product of its own."""
+    args, gy, gs = _parts_inputs(case)
+    want = kd.ssd_scan_bwd_plain(*(t.float() for t in args), gy.float(), gs,
+                                 chunk=256)
+    dx, ddt, dB, dC = _bwd_with_parts(*args, gy, gs, chunk=256,
+                                      state_parts=3, g_parts=2)
+    for name, got, w in (("ddt", ddt, want[1]), ("dx", dx, want[0]),
+                         ("dB", dB, want[3]), ("dC", dC, want[4])):
+        assert _rel(got, w) <= 1e-4, (name, _rel(got, w))
+    ddt_y = _bwd_with_parts(*args, gy, gs, chunk=256, state_parts=3,
+                            g_parts=2, carried="y")[1]
+    assert _rel(ddt, ddt_y) <= PARTS_RTOL, _rel(ddt, ddt_y)
