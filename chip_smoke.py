@@ -202,7 +202,7 @@ Function.  Phases, any failure exits non-zero:
 10. ops — phase 3's ResNet-18 f32 and VGG-16 f32 batch-1 forwards (their
    reference-budget plans; ``explain`` runs with ``--budget reference``)
    observed and guarded (``repro_torch.obs``, ``repro_torch.robust``): each traced
-   three times (per forward a span per launch with a positive CUDA-event
+   launch by launch (``tracing(launches=True)``) three times (per forward a span per launch with a positive CUDA-event
    time on this card, logits and skip maps as the untraced forward's, the
    run_network and end_skip_counts events), all in one Chrome trace that
    must validate
@@ -3725,7 +3725,7 @@ class Ops:
 
         torch, plan = self.torch, run["plan"]
         err = 0.0
-        with tracing() as col:
+        with tracing(launches=True) as col:
             for _ in range(OPS_REPS):
                 logits, skips = run_network(run["x"], run["prepared"],
                                             plan=plan)
@@ -3974,7 +3974,7 @@ class Ops:
             return ms
 
         def traced():
-            with tracing():
+            with tracing(launches=True):
                 run_network(run["x"], run["prepared"], plan=plan)
 
         def guarded():

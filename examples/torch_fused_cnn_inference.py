@@ -185,7 +185,7 @@ def main(argv: list[str] | None = None) -> int:
     sparse_params, xs = sparse_inputs(graph, params, x)
     # run the sparse forward traced (DESIGN.md #12): one measured+modeled
     # span per fused launch, recorded launch by launch
-    with tracing() as collector:
+    with tracing(launches=True) as collector:
         logits_s, skips_s = run_network(
             xs, prepare_network_params(tight, sparse_params), plan=tight
         )

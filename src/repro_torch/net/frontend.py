@@ -44,6 +44,8 @@ from __future__ import annotations
 
 import threading
 
+from repro_torch.obs.trace import get_tracer
+
 from .serve import RequestResult, ServingEngine
 
 
@@ -153,7 +155,13 @@ class ServingFrontend:
     def _loop(self) -> None:
         try:
             while not self._stopping.is_set():
+                # under a tracer the wait for work is a host span
+                tracer = get_tracer()
+                if tracer.enabled:
+                    span = tracer.begin("frontend.wait")
                 self._work.wait(timeout=0.05)
+                if tracer.enabled:
+                    tracer.end(span)
                 self._work.clear()
                 self.engine.drain()
             self.engine.drain()  # final sweep: nothing submitted is abandoned

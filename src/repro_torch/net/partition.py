@@ -400,9 +400,6 @@ def auto_partition(
         _CACHE_COUNTERS["evictions"] += 1
     tracer = get_tracer()
     if tracer.enabled:
-        tracer.bump("partition_cache_hit" if hit else "partition_cache_miss")
-        if evicted:
-            tracer.bump("partition_cache_eviction")
         tracer.record_event(
             "auto_partition",
             model=graph.name,
@@ -428,8 +425,7 @@ class PartitionCacheInfo(NamedTuple):
     between configs report per-run statistics instead of a process-lifetime
     accumulation.  ``evictions`` counts plans the bounded lru dropped to
     admit a new key: the serving engine multiplies keys per (model, bucket,
-    dtype), so a rising eviction count is the cache-thrash signal traces
-    surface via the ``partition_cache_eviction`` counter."""
+    dtype), so a rising eviction count is the cache-thrash signal."""
 
     hits: int
     misses: int

@@ -35,11 +35,14 @@ float32 reference only by operand rounding, bounded by
 :func:`bf16_logit_tol`.
 
 Observed and guarded forwards (DESIGN.md §12, §13): under
-``repro_torch.obs.tracing()`` each launch is timed (CUDA events on a card)
-and recorded as a span; under ``repro_torch.robust.guarding()`` the forward
-runs :func:`repro_torch.robust.degrade.run_network_guarded` — preflight,
-per-launch sentinels and the degradation ladder.  Both stay eager, as in
-the reference, and count no trace.
+``repro_torch.obs.tracing()`` the forward keeps its compiled route and a
+replay records a ``runner.replay`` host span; only
+``tracing(launches=True)`` times each launch (CUDA events on a card, a
+synchronize after each) and records it as a span.  Under
+``repro_torch.robust.guarding()`` the forward runs
+:func:`repro_torch.robust.degrade.run_network_guarded` — preflight,
+per-launch sentinels and the degradation ladder.  The per-launch and the
+guarded forwards stay eager, as in the reference, and count no trace.
 """
 
 from __future__ import annotations
@@ -409,11 +412,19 @@ class _Compiled:
     def replay(self, x: torch.Tensor):
         """Copy ``x`` into the static input, replay on the current stream,
         and return clones of the static results: the next replay
-        overwrites them."""
+        overwrites them.  Under a tracer the whole of it is one
+        ``runner.replay`` host span."""
+        tracer = get_tracer()
+        if tracer.enabled:
+            span = tracer.begin("runner.replay")
         self.static_x.copy_(x)
         self.graph.replay()
         build.add_launches(self.launches)
-        return self.logits.clone(), {k: v.clone() for k, v in self.skips.items()}
+        out = (self.logits.clone(),
+               {k: v.clone() for k, v in self.skips.items()})
+        if tracer.enabled:
+            tracer.end(span)
+        return out
 
 
 def _keyed_tensors(params: Params) -> tuple:
@@ -448,7 +459,7 @@ def _capture(x, params, plan, end_skip, cdt, keep) -> _Compiled:
 
 
 def _run_network_compiled(x, params, *, plan, end_skip, cdt):
-    """The untraced, unguarded forward through the compiled cache."""
+    """The unguarded forward through the compiled cache."""
     tensors = _keyed_tensors(params)
     key = _compiled_key(x, tensors, plan, end_skip, cdt)
     with _COMPILED_LOCK:
@@ -470,9 +481,6 @@ def _run_network_compiled(x, params, *, plan, end_skip, cdt):
             entry = _capture(x, params, plan, end_skip, cdt, keep=keep)
     else:
         entry = _Compiled(keep=keep)
-    tracer = get_tracer()
-    if tracer.enabled:
-        tracer.bump("run_network_jit_trace")
     with _COMPILED_LOCK:
         _JIT_STATS["traces"] += 1
         _COMPILED[key] = entry
@@ -503,18 +511,18 @@ def run_network(
     ``(B, alpha, alpha, Q)`` int32 END-cascade flag map.  Aggregate with
     :func:`skip_fractions`.
 
-    Neither traced nor guarded, the forward goes through the compiled
-    cache (module docstring): a CUDA tensor replays the key's captured
+    Unguarded, the forward goes through the compiled cache (module
+    docstring), traced or not: a CUDA tensor replays the key's captured
     graph and gets clones of its results, so the caller may keep them
     across forwards.  One thread at a time may replay a key.
 
     With a guard installed (``repro_torch.robust.guarding()``) the forward
     runs :func:`repro_torch.robust.degrade.run_network_guarded` instead:
     preflight, a numeric sentinel read on the host per launch, and the
-    degradation ladder.  Otherwise, with a tracer installed
-    (``repro_torch.obs.tracing()``) each launch is timed and recorded as a
-    span.  The default no-op guard and tracer cost one attribute check
-    each.
+    degradation ladder.  Otherwise, with a tracer that asks for launch
+    spans (``repro_torch.obs.tracing(launches=True)``) the forward runs
+    eagerly and each launch is timed and recorded as a span.  The default
+    no-op guard and tracer cost one attribute check each.
     """
     guard = get_guard()
     with full_fp32():
@@ -527,12 +535,12 @@ def run_network(
             )
         cdt = canonical_dtype(plan.compute_dtype if dtype is None else dtype)
         tracer = get_tracer()
-        if not tracer.enabled:
-            return _run_network_compiled(
-                x, params, plan=plan, end_skip=end_skip, cdt=cdt
+        if tracer.launches:
+            return _run_network_traced(
+                x, params, tracer, plan=plan, end_skip=end_skip, cdt=cdt
             )
-        return _run_network_traced(
-            x, params, tracer, plan=plan, end_skip=end_skip, cdt=cdt
+        return _run_network_compiled(
+            x, params, plan=plan, end_skip=end_skip, cdt=cdt
         )
 
 

@@ -63,7 +63,9 @@ turns the runner into a service:
   cycle model's cold latency: staging + the plan's cycles — a model, not a
   measurement), ``steady_us`` (the double-buffered steady state) and the
   measured p50/p95 request latency and images/s; with a tracer installed
-  every batch and every resilience action records an event.
+  every batch and every resilience action records an event, and the host
+  work of admission and of the drain loop records host spans
+  (:meth:`ServingEngine.drain`).
 
 ``python -m repro_torch.net.serve --model lenet --requests 32 --dry-stream``
 drives a deterministic two-wave synthetic stream on the card and prints the
@@ -309,7 +311,9 @@ class _BucketStats:
 class _Staged:
     """One formed batch on its way to the device: the padded input ``x``,
     the event its copy records (``None`` on the CPU) and the pinned host
-    buffer the copy reads, kept until the batch is done."""
+    buffer the copy reads, kept until the batch is done.  ``seq`` is the
+    engine's sequence number of the batch, ``dispatch_ns`` when a tracer
+    saw its dispatch begin."""
 
     batch: list
     bucket: int
@@ -317,6 +321,8 @@ class _Staged:
     x: torch.Tensor
     ready: torch.cuda.Event | None = None
     pinned: torch.Tensor | None = None
+    seq: int = 0
+    dispatch_ns: int | None = None
 
 
 # absolute floor of the watchdog's expected batch wall: N x a
@@ -370,6 +376,7 @@ class ServingEngine:
         self._lock = threading.RLock()
         self._drain_lock = threading.Lock()
         self._copy_stream = None  # made by the drain loop, on first use
+        self._batches_formed = 0  # the next batch's sequence number
 
     # -- listeners ----------------------------------------------------------
 
@@ -398,7 +405,20 @@ class ServingEngine:
         or (when ``deadline_aware``) a deadline the modeled queue ETA
         already blows — is *rejected*, not raised: its
         :class:`RequestResult` carries the typed error and the queue keeps
-        moving."""
+        moving.  Under a tracer the call is one ``serve.admit`` host
+        span."""
+        tracer = get_tracer()
+        if not tracer.enabled:
+            return self._admit(x, deadline_us, priority)
+        span = tracer.begin("serve.admit")
+        rid = None
+        try:
+            rid = self._admit(x, deadline_us, priority)
+            return rid
+        finally:
+            tracer.end(span, request=rid)
+
+    def _admit(self, x, deadline_us: float | None, priority: int) -> int:
         with self._lock:
             rid = self._next_id
             self._next_id += 1
@@ -445,7 +465,6 @@ class ServingEngine:
                 self.results[rid] = result
                 tracer = get_tracer()
                 if tracer.enabled:
-                    tracer.bump("serve_shed" if shed else "serve_reject")
                     tracer.record_event(
                         "serve_shed" if shed else "serve_reject",
                         request=rid, rows=rows,
@@ -544,11 +563,8 @@ class ServingEngine:
                 while len(self._cache) > self.config.plan_cache_size:
                     self._cache.popitem(last=False)
                     self.cache_counters["evictions"] += 1
-                    if tracer.enabled:
-                        tracer.bump("serve_cache_eviction")
             entry = self._cache[key]
         if tracer.enabled:
-            tracer.bump("serve_cache_hit" if hit else "serve_cache_miss")
             tracer.record_event(
                 "serve_plan_cache",
                 model=self.graph.name, bucket=bucket,
@@ -588,7 +604,6 @@ class ServingEngine:
         tracer = get_tracer()
         if tracer.enabled:
             for t in fresh:
-                tracer.bump("serve_breaker_transition")
                 tracer.record_event(
                     "serve_breaker",
                     model=self.graph.name, bucket=bucket,
@@ -684,60 +699,96 @@ class ServingEngine:
         self.resilience["expired"] += 1
         tracer = get_tracer()
         if tracer.enabled:
-            tracer.bump("serve_expired")
             tracer.record_event(
                 "serve_expired", request=req.id, rows=req.rows,
                 late_us=round(late_us, 1),
             )
         self._notify(result)
 
-    def _to_device(self, padded: np.ndarray):
+    def _to_device(self, padded: np.ndarray, seq: int | None = None):
         """Start the host→device copy of one padded float32 batch; returns
         ``(x, ready, pinned)``.  On a card: the batch goes into pinned host
         memory and is copied ``non_blocking`` on the engine's copy stream,
         which records ``ready``; ``x`` is allocated on that stream.  On the
-        CPU ``x`` is the batch itself and ``ready``/``pinned`` are None."""
+        CPU ``x`` is the batch itself and ``ready``/``pinned`` are None.
+        Under a tracer the pinning is a ``serve.pin`` host span and the
+        copy's issue a ``serve.h2d`` one, of batch ``seq``."""
+        tracer = get_tracer()
         host = torch.from_numpy(np.ascontiguousarray(padded))
         if self.device.type != "cuda":
-            return host.to(self.device), None, None
+            if tracer.enabled:
+                span = tracer.begin("serve.h2d", batch=seq)
+            x = host.to(self.device)
+            if tracer.enabled:
+                tracer.end(span)
+            return x, None, None
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
+        if tracer.enabled:
+            span = tracer.begin("serve.pin", batch=seq)
         pinned = host.pin_memory()
+        if tracer.enabled:
+            tracer.end(span)
+            span = tracer.begin("serve.h2d", batch=seq)
         with torch.cuda.stream(self._copy_stream):
             x = torch.empty(host.shape, dtype=host.dtype, device=self.device)
             x.copy_(pinned, non_blocking=True)
             ready = torch.cuda.Event()
             ready.record(self._copy_stream)
+        if tracer.enabled:
+            tracer.end(span)
         return x, ready, pinned
 
-    def _stage(self, batch: list[Request]) -> _Staged:
-        """Pad the batch to its bucket and start its host→device copy —
+    def _stage(self, batch: list[Request], seq: int) -> _Staged:
+        """Pad batch ``seq`` to its bucket and start its host→device copy —
         called for bucket ``n+1`` while bucket ``n`` computes.  The
         injected ``stage`` fault fires here: a staging failure surfaces
-        before any device work, and the caller fails the batch typed."""
-        rows = sum(r.rows for r in batch)
-        bucket = bucket_for(rows, self.config.buckets)
-        entry = self._entry(bucket)
-        inj = get_injector()
-        if inj.enabled:
-            inj.fire("stage", self._launch_name(bucket))
-        host = np.concatenate([r.x for r in batch], axis=0)
-        padded = pad_to_bucket(host, bucket).astype(np.float32, copy=False)
-        return _Staged(batch, bucket, entry, *self._to_device(padded))
+        before any device work, and the caller fails the batch typed.
+        Under a tracer everything before the copy is a ``serve.pad`` host
+        span."""
+        tracer = get_tracer()
+        if tracer.enabled:
+            span = tracer.begin("serve.pad", batch=seq)
+        try:
+            rows = sum(r.rows for r in batch)
+            bucket = bucket_for(rows, self.config.buckets)
+            entry = self._entry(bucket)
+            inj = get_injector()
+            if inj.enabled:
+                inj.fire("stage", self._launch_name(bucket))
+            host = np.concatenate([r.x for r in batch], axis=0)
+            padded = pad_to_bucket(host, bucket).astype(np.float32,
+                                                        copy=False)
+        finally:
+            if tracer.enabled:
+                tracer.end(span)
+        return _Staged(batch, bucket, entry,
+                       *self._to_device(padded, seq), seq=seq)
 
     def _next_staged(self) -> _Staged | None:
         """Form and stage the next batch, failing staging-faulted batches
-        typed and moving on — a poisoned batch never wedges the loop."""
+        typed and moving on — a poisoned batch never wedges the loop.  A
+        formed batch takes the engine's next sequence number; under a
+        tracer the formation is a ``serve.form`` host span."""
         while True:
+            tracer = get_tracer()
+            if tracer.enabled:
+                span = tracer.begin("serve.form")
             batch = self._form_batch()
+            seq = None
+            if batch is not None:
+                seq = self._batches_formed
+                self._batches_formed += 1
+            if tracer.enabled:
+                tracer.end(span, batch=seq)
             if batch is None:
                 return None
             try:
-                return self._stage(batch)
+                return self._stage(batch, seq)
             except RobustError as err:
                 rows = sum(r.rows for r in batch)
                 bucket = bucket_for(rows, self.config.buckets)
-                self._fail_batch(batch, bucket, err)
+                self._fail_batch(batch, bucket, err, seq=seq)
 
     def _await_staging(self, staged: _Staged) -> None:
         """Order the compute (current) stream after the batch's copy."""
@@ -797,10 +848,12 @@ class ServingEngine:
 
     def _fail_batch(
         self, batch: list[Request], bucket: int, err: RobustError,
-        wall_ms: float | None = None,
+        wall_ms: float | None = None, *, seq: int | None = None,
+        dispatch_ns: int | None = None,
     ) -> None:
         """Complete every request of a failed batch with the typed error —
         the batch is terminal, the queue keeps draining."""
+        tracer = get_tracer()
         with self._lock:
             for req in batch:
                 result = RequestResult(
@@ -808,10 +861,10 @@ class ServingEngine:
                 )
                 self.results[req.id] = result
                 self._notify(result)
+                if tracer.enabled:
+                    self._request_span(tracer, req, seq, dispatch_ns)
             self.resilience["failed"] += len(batch)
-        tracer = get_tracer()
         if tracer.enabled:
-            tracer.bump("serve_batch_error")
             tracer.record_event(
                 "serve_batch_error",
                 model=self.graph.name, bucket=bucket,
@@ -820,10 +873,27 @@ class ServingEngine:
                 wall_ms=wall_ms,
             )
 
+    @staticmethod
+    def _request_span(tracer, req: Request, seq, dispatch_ns) -> None:
+        """A ``serve.request`` host span: from ``req``'s admission to now,
+        when its result is delivered."""
+        tracer.add_span(
+            "serve.request", round(req.enqueue_s * 1e9),
+            time.perf_counter_ns(), batch=seq, request=req.id,
+            dispatch_ns=dispatch_ns,
+        )
+
     def _record(
         self, batch, bucket, entry, logits, wall_ms, *,
         route: str = "fused", calibrate: bool = True,
+        seq: int | None = None, dispatch_ns: int | None = None,
     ) -> None:
+        """Deliver a completed batch's results; under a tracer the call is
+        a ``serve.record`` host span of batch ``seq`` and each request
+        gets its ``serve.request`` span."""
+        tracer = get_tracer()
+        if tracer.enabled:
+            span = tracer.begin("serve.record", batch=seq)
         done_s = time.perf_counter()
         host_logits = logits.float().cpu().numpy()
         with self._lock:
@@ -848,7 +918,8 @@ class ServingEngine:
                 stats.images += req.rows
                 stats.latencies_ms.append(lat_ms)
                 self._notify(result)
-        tracer = get_tracer()
+                if tracer.enabled:
+                    self._request_span(tracer, req, seq, dispatch_ns)
         if tracer.enabled:
             tracer.record_event(
                 "serve_batch",
@@ -857,6 +928,7 @@ class ServingEngine:
                 wall_ms=wall_ms, slo_us=entry.slo_us,
                 route=route,
             )
+            tracer.end(span)
 
     def _launch_done(self):
         """An event after the work just queued on the compute stream (None
@@ -877,7 +949,16 @@ class ServingEngine:
         ``n+1`` copy rides under ``n``'s compute.  Around that sit the
         resilience hooks (each a no-op unless configured/armed): injected
         queue stalls, breaker routing, the slow-launch delay, the output
-        sentinel, the watchdog, and typed batch failure."""
+        sentinel, the watchdog, and typed batch failure.
+
+        Under a tracer each stretch of the loop's host work is a host span
+        carrying its batch's sequence number: ``serve.form``,
+        ``serve.pad``, ``serve.pin`` and ``serve.h2d`` (staging),
+        ``serve.dispatch`` (ordering after the copy and the forward, whose
+        replay is its child ``runner.replay``), ``serve.sync`` (the host
+        waiting on the device), ``serve.sentinel`` and ``serve.record``;
+        each request gets a ``serve.request`` span stamped with its
+        batch's dispatch."""
         completed: list[RequestResult] = []
         inj = get_injector()
         with self._drain_lock:
@@ -888,7 +969,6 @@ class ServingEngine:
                         self.resilience["stalls"] += 1
                     tracer = get_tracer()
                     if tracer.enabled:
-                        tracer.bump("serve_stall")
                         tracer.record_event(
                             "serve_stall", model=self.graph.name
                         )
@@ -899,16 +979,23 @@ class ServingEngine:
                 route = "fused"
                 if breaker is not None and not breaker.allow():
                     route = breaker.pinned_rung or "reference"
+                seq = staged.seq
+                tracer = get_tracer()
                 t0 = time.perf_counter()
                 err: RobustError | None = None
                 logits = report = done = None
                 fired = len(inj.fired)
+                if tracer.enabled:
+                    span = tracer.begin("serve.dispatch", batch=seq)
+                    staged.dispatch_ns = span.start_ns
                 try:
                     self._await_staging(staged)
                     logits, report = self._run_route(route, entry, staged.x)
                     done = self._launch_done()
                 except RobustError as e:
                     err = e
+                if tracer.enabled:
+                    tracer.end(span)
                 # faults fired by this batch's own launch (the next batch's
                 # staging below fires its own)
                 injected = self._injected(inj, fired)
@@ -916,7 +1003,11 @@ class ServingEngine:
                 sentinel_tripped = False
                 if err is None:
                     if done is not None:
+                        if tracer.enabled:
+                            span = tracer.begin("serve.sync", batch=seq)
                         done.synchronize()
+                        if tracer.enabled:
+                            tracer.end(span)
                     with self._lock:
                         self.route_batches[(bucket, route)] += 1
                     if inj.enabled:
@@ -929,15 +1020,18 @@ class ServingEngine:
                                 self._launch_name(bucket), logits
                             )
                         injected = injected or self._injected(inj, fired)
-                    if self.config.output_sentinel and not bool(
-                        torch.isfinite(logits.float()).all()
-                    ):
+                    finite = True
+                    if self.config.output_sentinel:
+                        if tracer.enabled:
+                            span = tracer.begin("serve.sentinel", batch=seq)
+                        finite = bool(torch.isfinite(logits.float()).all())
+                        if tracer.enabled:
+                            tracer.end(span)
+                    if not finite:
                         sentinel_tripped = True
                         with self._lock:
                             self.resilience["sentinel_trips"] += 1
-                        tracer = get_tracer()
                         if tracer.enabled:
-                            tracer.bump("serve_sentinel_trip")
                             tracer.record_event(
                                 "serve_sentinel",
                                 model=self.graph.name, bucket=bucket,
@@ -967,9 +1061,7 @@ class ServingEngine:
                         limit_ms = self.config.watchdog_factor * thresh_ms
                         with self._lock:
                             self.resilience["watchdog_trips"] += 1
-                        tracer = get_tracer()
                         if tracer.enabled:
-                            tracer.bump("serve_watchdog_trip")
                             tracer.record_event(
                                 "serve_watchdog",
                                 model=self.graph.name, bucket=bucket,
@@ -1002,12 +1094,14 @@ class ServingEngine:
                         breaker.record_failure()
                     self._flush_breaker(bucket, breaker)
                 if err is not None:
-                    self._fail_batch(batch, bucket, err, wall_ms)
+                    self._fail_batch(batch, bucket, err, wall_ms, seq=seq,
+                                     dispatch_ns=staged.dispatch_ns)
                 else:
                     self._record(
                         batch, bucket, entry, logits, wall_ms,
                         route=route,
                         calibrate=not (wd_tripped or sentinel_tripped),
+                        seq=seq, dispatch_ns=staged.dispatch_ns,
                     )
                 completed.extend(self.results[r.id] for r in batch)
                 staged = staged_next

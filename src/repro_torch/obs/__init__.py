@@ -6,10 +6,11 @@ records what each launch planned and what it measurably did on the device.
 Pieces:
 
 * :mod:`repro_torch.obs.trace` — the :class:`TraceCollector` span/event
-  store, the process-global tracer hook (:func:`get_tracer` /
-  :func:`tracing`) and :class:`SpanTimer` (CUDA events on a card, the host
-  clock elsewhere).  The default tracer is a no-op whose only cost is one
-  attribute check in ``net/runner.run_network``.
+  store (launch spans on request, host spans of the serving path, each
+  mirrored as a profiler range of its name), the process-global tracer hook
+  (:func:`get_tracer` / :func:`tracing`) and :class:`SpanTimer` (CUDA
+  events on a card, the host clock elsewhere).  The default tracer is a
+  no-op whose only cost is one attribute check at each instrumented site.
 * :mod:`repro_torch.obs.stats` — :func:`percentile` and
   :func:`timed_stats_ms`.
 * :mod:`repro_torch.obs.timeline` — Chrome-trace (Perfetto) JSON export:
@@ -26,6 +27,7 @@ from .stats import percentile, timed_stats_ms
 from .timeline import chrome_trace, validate_chrome_trace, write_chrome_trace
 from .trace import (
     NULL_TRACER,
+    HostSpan,
     LaunchSpan,
     SpanTimer,
     TraceCollector,
@@ -52,6 +54,7 @@ def __getattr__(name: str):
 
 __all__ = [
     "NULL_TRACER",
+    "HostSpan",
     "LaunchSpan",
     "SpanTimer",
     "TraceCollector",

@@ -9,8 +9,9 @@ optionally:
   launch's modeled fill/steady/drain DMA-vs-MXU timeline
   (:mod:`repro_torch.obs.timeline`); with ``--run`` the measured spans of a
   traced ``run_network`` ride alongside.
-* ``--run`` — execute the plan with tracing enabled (one untraced warm-up,
-  then ``--reps`` traced forwards) and print the model-vs-measured drift
+* ``--run`` — execute the plan with per-launch tracing
+  (``tracing(launches=True)``: one untraced warm-up, then ``--reps``
+  forwards timed launch by launch) and print the model-vs-measured drift
   table (:mod:`repro_torch.obs.report`).
 * ``--guard`` — execute the plan under the guarded runtime
   (:mod:`repro_torch.robust`) and print the fallback table: which launches
@@ -301,7 +302,7 @@ def main(argv: list[str] | None = None) -> int:
         run_network(x, params, plan=plan)  # untraced warm-up: kernel builds
         label = device_label(device)
         print(f"\nrunning {args.reps} traced forwards on {label} ...")
-        with tracing() as collector:
+        with tracing(launches=True) as collector:
             for _ in range(args.reps):
                 _, skips = run_network(x, params, plan=plan)
         frac = skip_fractions(skips)

@@ -1,14 +1,18 @@
-"""Structured launch tracing: spans, events, counters, and the global hook.
+"""Structured tracing: launch spans, host spans, events, and the global hook.
 
-A stdlib copy of the reference package's ``repro.obs.trace``.  One
-:class:`LaunchSpan` is recorded per fused-pyramid launch — the plan's static
-knobs and modeled costs (what the planner promised) next to the measured
-launch time (what the launch did).  :class:`TraceEvent` covers everything
-that is not a launch: ``auto_partition`` cache hits/misses, per-level
-END-skip counts, whole-forward timings.
+A stdlib copy of the reference package's ``repro.obs.trace``, plus host
+spans.  One :class:`LaunchSpan` is recorded per fused-pyramid launch when
+the collector asks for them — the plan's static knobs and modeled costs
+(what the planner promised) next to the measured launch time (what the
+launch did).  :class:`HostSpan` records a stretch of host work at a layer
+boundary of the serving path (admission, a batch's formation, staging,
+dispatch, wait and record, the replayed forward) on the host's
+``time.perf_counter_ns`` clock.  :class:`TraceEvent` covers everything that
+is neither: ``auto_partition`` cache hits/misses, per-level END-skip
+counts, whole-forward timings.
 
-The collector is deliberately dumb — append-only lists plus a counter dict —
-so instrumented code stays cheap.
+The collector is deliberately dumb — append-only lists — so instrumented
+code stays cheap.
 
 The process-global tracer defaults to :data:`NULL_TRACER`, whose ``enabled``
 is ``False``: instrumented call sites check that one attribute and take
@@ -17,21 +21,34 @@ their uninstrumented fast path.  Enable collection with::
     from repro_torch.obs import tracing
 
     with tracing() as collector:
-        run_network(x, params, plan=plan)
-    print(collector.spans)
+        engine.serve(images)
+    print(collector.host_spans)
 
-The traced runner (:func:`repro_torch.net.runner.run_network`) times each
-launch with a :class:`SpanTimer`: CUDA events on the launch's stream when
-the input lives on a CUDA device, the host clock otherwise (CPU tensors
-complete synchronously).  Each span names the device it was measured on
+A collector leaves the forward's route alone: ``run_network`` replays its
+compiled forward and records one ``runner.replay`` host span.  Per-launch
+spans need ``tracing(launches=True)``: then the runner
+(:func:`repro_torch.net.runner.run_network`) runs the forward launch by
+launch and times each with a :class:`SpanTimer` — CUDA events on the
+launch's stream when the input lives on a CUDA device (a synchronize after
+each launch), the host clock otherwise (CPU tensors complete
+synchronously).  Each launch span names the device it was measured on
 (:func:`device_label`).
+
+Each host span is also opened as a profiler range of the same name.  On a
+thread a running profiler records, both copies exist, and the offset
+between the two clocks can be read from those pairs; spans of other
+threads (the serving engine's drain thread, started before the profiler)
+then map onto the profiler's timeline with it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import threading
 import time
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 
 @dataclass(frozen=True)
@@ -77,19 +94,60 @@ class TraceEvent:
     args: dict
 
 
+class HostSpan(NamedTuple):
+    """One stretch of host work, on :func:`time.perf_counter_ns`.
+
+    ``thread`` is the native id of the thread that ran it (``None`` for a
+    request span, which starts on its caller's thread and ends on the drain
+    thread).  ``batch`` is the serving engine's sequence number of the
+    batch the work belongs to, ``request`` the request's id, ``parent`` the
+    ``id`` of the span open around it on its thread.  A request span's
+    ``dispatch_ns`` is when its batch's ``serve.dispatch`` began (``None``
+    when its batch failed before dispatch)."""
+
+    id: int
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int | None
+    batch: int | None = None
+    request: int | None = None
+    parent: int | None = None
+    dispatch_ns: int | None = None
+
+
+class _Open:
+    """An open host span: what :meth:`TraceCollector.begin` hands back."""
+
+    __slots__ = ("id", "name", "start_ns", "batch", "request", "parent",
+                 "mirror")
+
+
 class TraceCollector:
-    """Append-only span/event store with named counters.
+    """Append-only store of launch spans, host spans and events.
 
     ``enabled`` is class-level ``True`` so the instrumented fast-path check
     (``get_tracer().enabled``) costs one attribute load either way.
+    ``launches`` asks ``run_network`` for a :class:`LaunchSpan` per launch,
+    which runs the forward eagerly with a synchronize after each launch;
+    without it the forward takes its untraced route.
     """
 
     enabled = True
 
-    def __init__(self) -> None:
+    def __init__(self, *, launches: bool = False) -> None:
+        self.launches = launches
         self.spans: list[LaunchSpan] = []
+        self.host_spans: list[HostSpan] = []
         self.events: list[TraceEvent] = []
-        self.counters: dict[str, int] = {}
+        self._ids = itertools.count()
+        self._stacks = threading.local()
+        # a span's profiler range: PyTorch's C++ RecordFunction behind
+        # torch.profiler.record_function's operator, opened directly (0.4-0.6
+        # against 12.6-15.2 us an enter and exit on an H100 machine's host)
+        from torch._C._profiler import _RecordFunctionFast
+
+        self._mirror = _RecordFunctionFast
 
     def record_span(self, span: LaunchSpan) -> None:
         self.spans.append(span)
@@ -99,25 +157,72 @@ class TraceCollector:
             TraceEvent(name=name, ts_s=time.perf_counter(), args=args)
         )
 
-    def bump(self, counter: str, n: int = 1) -> None:
-        self.counters[counter] = self.counters.get(counter, 0) + n
+    def _stack(self) -> list:
+        stack = getattr(self._stacks, "open", None)
+        if stack is None:
+            stack = self._stacks.open = []
+        return stack
+
+    def begin(self, name: str, *, batch: int | None = None,
+              request: int | None = None) -> _Open:
+        """Open host span ``name`` on this thread, inside the span open
+        there (its parent), with its profiler range; returns what
+        :meth:`end` takes."""
+        stack = self._stack()
+        span = _Open()
+        span.id = next(self._ids)
+        span.name = name
+        span.batch = batch
+        span.request = request
+        span.parent = stack[-1].id if stack else None
+        span.mirror = self._mirror(name)
+        span.mirror.__enter__()
+        span.start_ns = time.perf_counter_ns()
+        stack.append(span)
+        return span
+
+    def end(self, span: _Open, *, batch: int | None = None,
+            request: int | None = None) -> None:
+        """Close ``span`` (and any span left open inside it by an
+        exception, which is dropped) and record it; ``batch`` and
+        ``request`` fill in what was not known when it began."""
+        end_ns = time.perf_counter_ns()
+        stack = self._stack()
+        while span in stack:
+            top = stack.pop()
+            top.mirror.__exit__(None, None, None)
+            if top is span:
+                break
+        self.host_spans.append(HostSpan(
+            span.id, span.name, span.start_ns, end_ns,
+            threading.get_native_id(),
+            span.batch if batch is None else batch,
+            span.request if request is None else request,
+            span.parent,
+        ))
+
+    def add_span(self, name: str, start_ns: int, end_ns: int, **ids) -> None:
+        """Record a finished span that no one thread ran (a request's,
+        from admission to its result): no parent, no profiler twin."""
+        self.host_spans.append(HostSpan(
+            id=next(self._ids), name=name, start_ns=start_ns, end_ns=end_ns,
+            thread=None, **ids,
+        ))
 
 
 class _NullTracer:
     """The zero-overhead default: nothing is recorded, nothing is kept."""
 
     enabled = False
+    launches = False
     spans: tuple = ()
+    host_spans: tuple = ()
     events: tuple = ()
-    counters: dict = {}
 
     def record_span(self, span: LaunchSpan) -> None:
         pass
 
     def record_event(self, name: str, **args) -> None:
-        pass
-
-    def bump(self, counter: str, n: int = 1) -> None:
         pass
 
 
@@ -139,12 +244,15 @@ def set_tracer(tracer) -> None:
 
 
 @contextlib.contextmanager
-def tracing(collector: TraceCollector | None = None):
+def tracing(collector: TraceCollector | None = None, *,
+            launches: bool = False):
     """Scope a collector as the global tracer; yields the collector.
 
-    Nesting restores the previous tracer on exit.
+    ``launches`` makes a new collector ask for per-launch spans
+    (:class:`TraceCollector`).  Nesting restores the previous tracer on
+    exit.
     """
-    col = TraceCollector() if collector is None else collector
+    col = TraceCollector(launches=launches) if collector is None else collector
     prev = get_tracer()
     set_tracer(col)
     try:

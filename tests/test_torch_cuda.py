@@ -254,7 +254,7 @@ def test_traced_run_times_launches_with_cuda_events(cuda):
     params = init_network_params(graph, seed=0, device=cuda)
     x = torch.randn((2, 32, 32, 1), device=cuda)
     plan = auto_partition(graph, batch=2, prefer_region="smallest")
-    with tracing() as col:
+    with tracing(launches=True) as col:
         logits, _ = run_network(x, params, plan=plan)
     assert logits.is_cuda
     assert [s.name for s in col.spans] == [p.name for p in plan.pyramids]
@@ -665,6 +665,37 @@ def test_engine_waves_replay_and_count(cuda):
             assert res.ok
             assert float(np.abs(res.logits - ref.cpu().numpy()).max()) \
                 <= _tol(ref, torch.float32)
+
+
+def test_traced_engine_replays_its_graphs(cuda):
+    """Under ``tracing()`` a warm engine's forward replays its captured
+    graphs: no capture, no launch span, A's launches the plan's, and one
+    ``runner.replay`` span inside each batch's ``serve.dispatch``, between
+    its ``serve.h2d`` and its ``serve.sync``."""
+    from repro_torch.net import runner
+
+    graph, master, eng = _lenet_engine(cuda)
+    plan = eng._entry(4).plan
+    stream = [_lenet_images(4, 20 + i) for i in range(3)]
+    eng.serve(stream[:1])  # captures bucket 4
+    runner.reset_jit_trace_count()
+    build.reset_launch_counts()
+    with tracing() as col:
+        results = eng.serve(stream)
+    torch.cuda.synchronize()
+    assert all(r.ok for r in results)
+    assert runner.jit_trace_count() == 0 and not col.spans
+    assert _counts()[fc.PYRAMID.symbol] == 3 * plan.n_launches()
+    spans = {(s.name, s.batch): s for s in col.host_spans}
+    replays = [s for s in col.host_spans if s.name == "runner.replay"]
+    assert len(replays) == 3
+    for r in replays:
+        parent = next(s for s in col.host_spans if s.id == r.parent)
+        assert parent.name == "serve.dispatch"
+        seq = parent.batch
+        assert (spans[("serve.h2d", seq)].end_ns <= parent.start_ns
+                <= parent.end_ns <= spans[("serve.sync", seq)].start_ns)
+        assert ("serve.pin", seq) in spans and ("serve.record", seq) in spans
 
 
 def test_frontend_on_the_card(cuda):

@@ -106,7 +106,7 @@ def test_sparse_input_skips_and_traced_spans():
     ref = np.asarray(jrunner.reference_network(jnp.asarray(xs), jg, jshift))
     plan = tpart.auto_partition(tg, batch=BATCH, prefer_region="smallest",
                                 budget=REFERENCE_BUDGET)
-    with tracing() as col:
+    with tracing(launches=True) as col:
         logits, skips = trunner.run_network(torch.from_numpy(xs), shifted,
                                             plan=plan)
     np.testing.assert_allclose(logits.numpy(), ref, atol=1e-4)

@@ -208,7 +208,7 @@ def test_traced_cpu_run_names_its_device():
         plan, init_network_params(graph, seed=0, device="cpu")
     )
     x = torch.randn((1, 32, 32, 1), generator=torch.Generator().manual_seed(1))
-    with tracing() as col:
+    with tracing(launches=True) as col:
         run_network(x, params, plan=plan)
     assert [s.device for s in col.spans] == ["cpu"] * plan.n_launches()
     trace = timeline.chrome_trace(
