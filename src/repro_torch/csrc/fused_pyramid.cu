@@ -57,10 +57,13 @@
 //     mma.sync.m16n8k16 bf16 -> float32 on the tensor cores; the 8 warps
 //     split a tile 4 (pixels) x 2 (channels).
 //   * float32: IEEE fp32 FMAs on the CUDA cores (no TF32); each thread owns
-//     kBM/16 pixels x 4 channels (8 x 4 of the large tile) and reads its
-//     operands as vectors, per two k a float4 of B each and a float2 of A
-//     for each pixel: 10 shared loads per 64 FMAs.  The k loop is not
-//     unrolled, which keeps it within 128 registers (two blocks of 256
+//     kBM/16 pixels (16 rows apart) x 4 channels, 8 x 4 of the large tile,
+//     and reads only 16-byte vectors: per 4 k a float4 of B for each k and
+//     a float4 of A (4 k of its row) for each pixel, 12 loads per 128 FMAs
+//     at the large tile, each one shared-memory wavefront (warps are 4
+//     pixel rows x 8 channel quads).  The next fragments are loaded one use
+//     ahead, into the registers they replace; the loop over 4-k groups is
+//     not unrolled, which keeps it within 128 registers (two blocks of 256
 //     threads per SM) without spills.
 // The tile's sums then go through shared memory to the epilogue (bias,
 // ReLU, mask, one cast), in float32 per output, each thread on one channel
@@ -70,12 +73,16 @@
 // What bounds it on this card: the multiply-adds bound it far more than
 // bytes (float32 at 67 TFLOP/s on the CUDA cores; bf16 at 989 on the
 // tensor cores, which puts a whole batch-8 ResNet-18 forward's convolutions
-// at about 0.03 ms).  Above that bound the kernel is held by what surrounds
-// the products: the launch and the grid barriers (one per level, one per
-// pool, one per split reduction), the window gather from L2 (K*K times the
-// level's input, for every 64 output channels), the partial-sum
-// reduction, and the scalar epilogue.  PERF.md records its measured time
-// beside the bound.
+// at about 0.03 ms).  The float32 product loop alone, out of a resident
+// tile, issues one shared load per 10.7 FMAs and runs at about 70 % of the
+// FMA peak; inside the kernel each step adds the window gather (its address
+// arithmetic and 24 KB of cp.async from L2 a block, K*K times the level's
+// input for every 64 output channels) and a block barrier, which hold a
+// one-conv VGG-16 level at batch 32 near half the peak.  Around the steps:
+// the launch and the grid barriers (one per level, one per pool, one per
+// split reduction), tiles that overhang a level's pixels (196 of 256 rows
+// at 14 x 14), the partial-sum reduction and the scalar epilogue.  PERF.md
+// records the measured time beside the bound.
 //
 // x_slots / w_slots / streamed are schedule knobs of the TPU kernels that
 // never change values; this kernel reads one flat HWIO weight buffer with
@@ -194,44 +201,91 @@ constexpr int smem_bytes() {
 template <typename T, int BM>
 struct Mma;
 
-// float32 on the CUDA cores: thread (tx, ty) owns pixels ty*kTM .. +kTM
-// and channels tx*4 .. +4; per 2 k it reads 2 + kTM vectors for kTM*8 FMAs
+// float32 on the CUDA cores: thread (tx, ty) owns pixels ty + 16*a (a <
+// kTM) and channels tx*4 .. +4, a warp 4 ty x 8 tx.  A step is kGroups
+// groups of 4 k.  Per group a thread reads a float4 of B a k (its 4
+// channels) and a float4 of A a pixel (4 k of its row): 4 + kTM 16-byte
+// loads for 16*kTM FMAs, each one shared-memory wavefront (the warp's B
+// quads are 128 contiguous bytes; its 4 A rows lie kAS = 36 words, 4 banks,
+// apart).  Fragments are loaded one use ahead, in place: pixel a+1's A
+// before pixel a's FMAs, the next group's b[i] after this group's last FMA
+// with b[i]; so 4 B and 2 A vectors are live beside the accumulators.  The
+// group loop is not unrolled, which keeps those lifetimes from stretching
+// across groups (unrolled, the kernel spills at 128 registers).  An
+// iteration runs the last quarter of one group's pixels and the first
+// three quarters of the next group's, so the B fragments it loads are used
+// in the same iteration and are issued early.
 template <int BM>
 struct Mma<float, BM> {
   using C = Tile<float, BM>;
   static constexpr int kTM = BM / 16;
+  static constexpr int kGroups = kBK / 4;
+  // an iteration of the group loop: pixels kSplit .. kTM-1 of one group,
+  // then 0 .. kSplit-1 of the next
+  static constexpr int kSplit = kTM * 3 / 4;
+  static_assert(kTM % 2 == 0, "A fragments alternate between two slots");
 
-  __device__ __forceinline__ static void run(const float* As,
-                                             const float* Bs, float* acc) {
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    // not unrolled: the loop stays within the register budget (no
-    // spills at two blocks per SM)
-#pragma unroll 1
-    for (int kk = 0; kk < kBK; kk += 2) {
-      const float4 b0 =
-          *reinterpret_cast<const float4*>(Bs + kk * C::kBS + tx * 4);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(Bs + (kk + 1) * C::kBS + tx * 4);
+  __device__ __forceinline__ static int tx() {
+    return (threadIdx.x / 128) * 8 + threadIdx.x % 8;
+  }
+  __device__ __forceinline__ static int ty() {
+    return (threadIdx.x / 32) % 4 * 4 + threadIdx.x % 32 / 8;
+  }
+  __device__ __forceinline__ static float4 ld4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+
+  // pixels A0 .. A1-1 of group g; with kNext, the group's last pixel (A1 ==
+  // kTM) also loads the next group's B fragments and its pixel 0
+  template <int A0, int A1, bool kNext>
+  __device__ __forceinline__ static void pixels(const float* ar,
+                                                const float* bc, int g,
+                                                float4 (&b)[4],
+                                                float4 (&av)[2], float* acc) {
 #pragma unroll
-      for (int a = 0; a < kTM; ++a) {
-        const float2 v = *reinterpret_cast<const float2*>(
-            As + (ty * kTM + a) * C::kAS + kk);
-        float* c = acc + a * 4;
-        c[0] = fmaf(v.x, b0.x, c[0]);
-        c[1] = fmaf(v.x, b0.y, c[1]);
-        c[2] = fmaf(v.x, b0.z, c[2]);
-        c[3] = fmaf(v.x, b0.w, c[3]);
-        c[0] = fmaf(v.y, b1.x, c[0]);
-        c[1] = fmaf(v.y, b1.y, c[1]);
-        c[2] = fmaf(v.y, b1.z, c[2]);
-        c[3] = fmaf(v.y, b1.w, c[3]);
+    for (int a = A0; a < A1; ++a) {
+      const float4 v = av[a % 2];
+      if (a + 1 < kTM) {
+        av[(a + 1) % 2] = ld4(ar + (a + 1) * 16 * C::kAS + g * 4);
+      } else if (kNext) {
+        av[0] = ld4(ar + (g + 1) * 4);
+      }
+      const float x[4] = {v.x, v.y, v.z, v.w};
+      float* c = acc + a * 4;
+      // each sum takes its products in ascending k, as fmaf chains
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        c[0] = fmaf(x[i], b[i].x, c[0]);
+        c[1] = fmaf(x[i], b[i].y, c[1]);
+        c[2] = fmaf(x[i], b[i].z, c[2]);
+        c[3] = fmaf(x[i], b[i].w, c[3]);
+        if (kNext && a + 1 == kTM) {
+          b[i] = ld4(bc + ((g + 1) * 4 + i) * C::kBS);
+        }
       }
     }
   }
 
+  __device__ __forceinline__ static void run(const float* As,
+                                             const float* Bs, float* acc) {
+    const float* const ar = As + ty() * C::kAS;
+    const float* const bc = Bs + tx() * 4;
+    float4 b[4], av[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) b[i] = ld4(bc + i * C::kBS);
+    av[0] = ld4(ar);
+    pixels<0, kSplit, false>(ar, bc, 0, b, av, acc);
+#pragma unroll 1
+    for (int g = 0; g < kGroups - 1; ++g) {
+      pixels<kSplit, kTM, true>(ar, bc, g, b, av, acc);
+      pixels<0, kSplit, false>(ar, bc, g + 1, b, av, acc);
+    }
+    pixels<kSplit, kTM, false>(ar, bc, kGroups - 1, b, av, acc);
+  }
+
   __device__ __forceinline__ static void coord(int idx, int& m, int& n) {
-    m = (threadIdx.x / 16) * kTM + idx / 4;
-    n = (threadIdx.x % 16) * 4 + idx % 4;
+    m = ty() + 16 * (idx / 4);
+    n = tx() * 4 + idx % 4;
   }
 };
 

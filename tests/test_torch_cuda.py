@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import h100  # noqa: E402
 from repro_torch.core.fusion import FusedLevel, FusionSpec  # noqa: E402
 from repro_torch.core.program import compile_program  # noqa: E402
 from repro_torch.core.executor import init_pyramid_params  # noqa: E402
@@ -105,6 +106,21 @@ Q4_POOLS = FusionSpec(
     ),
     input_size=32,
 )
+# VGG-16's deep levels, one conv a launch as the card plans them at batch
+# 32 (run here at batch 3, where they also split K): 256 -> 256 at 28 x 28
+# (72 K steps), and 512 -> 512 at 14 x 14 with its pool (196 pixels in two
+# 128-row tiles, through the pre-pool tile)
+CONV256_28 = FusionSpec(
+    levels=(FusedLevel("conv", K=3, S=1, pad=1, n_in=256, n_out=256),),
+    input_size=28,
+)
+CONV512_POOL_14 = FusionSpec(
+    levels=(
+        FusedLevel("conv", K=3, S=1, pad=1, n_in=512, n_out=512),
+        FusedLevel("pool", K=2, S=2, pad=0, n_in=512, n_out=512),
+    ),
+    input_size=14,
+)
 
 # (spec, out_region, c_tiles)
 CASES = {
@@ -116,6 +132,8 @@ CASES = {
     "cout_6_96": (COUT_6_96, 8, 1),
     "level_7x7": (LEVEL_7X7, 7, 1),
     "q4_pools_alpha4": (Q4_POOLS, 2, 1),
+    "conv256_28": (CONV256_28, 28, 1),
+    "conv512_pool_14": (CONV512_POOL_14, 7, 1),
 }
 
 
@@ -140,6 +158,15 @@ def test_library_builds(cuda):
     for name in build.SOURCES:
         print(reports[name])
         assert build.library_path(name).is_file()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", fc.KERNELS, ids=lambda k: k.symbol)
+def test_resident_blocks_fill_the_planned_grid(cuda, kernel, dtype):
+    """Both entry points hold the grid the planner's K-splits assume
+    (card_layout on h100.PYRAMID_GRID blocks) at both dtypes."""
+    assert kernel.resident_blocks(fc._DTYPE_CODES[dtype], cuda) == \
+        h100.PYRAMID_GRID
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
