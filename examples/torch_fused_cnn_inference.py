@@ -45,7 +45,9 @@ from repro_torch.net.runner import (
 from repro_torch.obs import timed_stats_ms, tracing
 
 # the reference example's reduced sizes, kept for the plain path on the CPU
-CPU_SIZE = {"lenet": 32, "alexnet": 67, "vgg16": 32, "resnet18": 32}
+# (ResNet-50, which the reference does not have, as ResNet-18)
+CPU_SIZE = {"lenet": 32, "alexnet": 67, "vgg16": 32, "resnet18": 32,
+            "resnet50": 32}
 # float32 logits against the float32 reference: this share of max|logit|
 F32_LOGIT_RTOL = 1e-4
 TIMED_REPS = 5

@@ -2,11 +2,14 @@
 graph IR.
 
 The port of the reference package's ``repro.core.cnn_models``.  The full
-networks live as graphs in :mod:`repro_torch.net.graph` (the model zoo);
-this module derives the paper's *hand-picked fusion choices* from them:
-LeNet-5 / AlexNet fuse the first two conv layers (+ their pools); VGG-16
-fuses the first two blocks (four convs + two pools); ResNet-18 fuses the
-conv pair inside each residual block (stem conv excluded).
+networks live as graphs in :mod:`repro_torch.net.graph` (the model zoo:
+LeNet-5, AlexNet, VGG-16, ResNet-18, and ResNet-50, which only the port
+has); this module derives the paper's *hand-picked fusion choices* for the
+first four: LeNet-5 / AlexNet fuse the first two conv layers (+ their
+pools); VGG-16 fuses the first two blocks (four convs + two pools);
+ResNet-18 fuses the conv pair inside each residual block (stem conv
+excluded).  The paper picks no fusion groups for ResNet-50; the
+partitioner plans it.
 """
 
 from __future__ import annotations

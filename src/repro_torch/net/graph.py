@@ -1,7 +1,8 @@
 """CNN graph IR: whole networks as explicit dataflow graphs.
 
-A copy of the reference package's ``repro.net.graph`` (pure Python, so the
-zoo and every segment it yields are identical in both packages).
+A copy of the reference package's ``repro.net.graph`` (pure Python, so
+every model both zoos have, and every segment it yields, is identical in
+both packages), plus :func:`resnet50`, which only this package has.
 
 A :class:`Graph` is a topologically-ordered tuple of :class:`Node` — conv /
 pool / relu / residual-add / global-pool / flatten / dense — each naming its
@@ -10,7 +11,8 @@ forward references only, shape/channel chaining) so malformed networks fail
 here with a named node, not deep inside a kernel.
 
 The IR is the single source of the model zoo: :func:`lenet5`,
-:func:`alexnet`, :func:`vgg16` and :func:`resnet18`.  All builders take
+:func:`alexnet`, :func:`vgg16`, :func:`resnet18` and :func:`resnet50`
+(port-only).  All builders take
 ``input_size`` so tests and CPU runs can use reduced-scale variants of the
 same topology.
 
@@ -32,7 +34,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
-from repro_torch.core.dtypes import canonical_dtype
+from repro_torch.core.dtypes import canonical_dtype, dtype_bytes
 from repro_torch.core.fusion import FusedLevel, FusionSpec
 
 _OPS = ("input", "conv", "pool", "relu", "add", "global_pool", "flatten", "dense")
@@ -274,6 +276,32 @@ def fusable_segments(graph: Graph) -> tuple[Segment, ...]:
     return tuple(segments)
 
 
+def residual_joins(graph: Graph) -> tuple[tuple[str, str | None], ...]:
+    """Each residual ``add`` node with the ``relu`` node that is its only
+    consumer (``None`` when it has none), in graph order: the joins a
+    forward runs as plain ops between its pyramid launches."""
+    consumers = graph.consumers()
+    joins = []
+    for n in graph.nodes:
+        if n.op != "add":
+            continue
+        after = consumers[n.name]
+        relu = (after[0] if len(after) == 1
+                and graph.node(after[0]).op == "relu" else None)
+        joins.append((n.name, relu))
+    return tuple(joins)
+
+
+def join_bytes(graph: Graph, add: str, relu: str | None, batch: int,
+               dtype: str) -> int:
+    """Bytes the join at ``add`` moves for ``batch`` images at ``dtype``:
+    the add reads two maps and writes one; its ``relu``, when it has one,
+    reads and writes one more."""
+    shape = infer_shapes(graph)[add]
+    elements = batch * shape.size * shape.size * shape.channels
+    return elements * dtype_bytes(dtype) * (3 if relu is None else 5)
+
+
 # ---------------------------------------------------------------------------
 # Model zoo
 # ---------------------------------------------------------------------------
@@ -404,11 +432,62 @@ def resnet18(input_size: int = 224, num_classes: int = 1000, *,
     return b.graph("resnet18", input_size, 3, compute_dtype)
 
 
+# (bottleneck blocks, width, stride of the stage's first block) per stage;
+# each block's output has 4 x its width
+_RESNET50_PLAN = ((3, 64, 1), (4, 128, 2), (6, 256, 2), (3, 512, 2))
+_BOTTLENECK_EXPANSION = 4
+
+
+def resnet50(input_size: int = 224, num_classes: int = 1000, *,
+             compute_dtype: str = "float32") -> Graph:
+    """ResNet-50 v1.5 (He et al., arXiv:1512.03385, Table 1, 50-layer; the
+    stride on the 3x3 conv, as torchvision's ``resnet50`` and MLPerf
+    Inference's ResNet-50 v1.5): 7x7/2 stem + 3x3/2 maxpool, sixteen
+    bottleneck blocks ``b0``..``b15`` in stages of (3, 4, 6, 3), global
+    average pool and the classifier.
+
+    Each block is ``c1`` 1x1 with ReLU, ``c2`` 3x3 (stride 2 on the first
+    block of stages 2-4) with ReLU, ``c3`` 1x1 to 4x the width without
+    activation, and on the first block of each stage a linear 1x1
+    projection ``proj`` with ``c2``'s stride; the join is a standalone
+    ``add`` + ``relu`` pair.  Since one pyramid launch applies one
+    activation mode, ``c1..c2`` is the fusable chain and ``c3`` and
+    ``proj`` launch alone, linear.
+
+    Departure from the published network: batch norm is folded into each
+    conv's weight and bias, as inference deployments do.  The model
+    exists only in this package, not in the reference's zoo.
+    """
+    b = _Builder()
+    b.conv("conv1", 7, 2, 3, 64)
+    b.pool("maxpool", 3, 2, pad=1)
+    blk = 0
+    for n_blocks, width, stride in _RESNET50_PLAN:
+        for i in range(n_blocks):
+            name, block_in = f"b{blk}", b.tail
+            blk += 1
+            s = stride if i == 0 else 1
+            out = _BOTTLENECK_EXPANSION * width
+            b.conv(f"{name}_c1", 1, 1, 0, width)
+            b.conv(f"{name}_c2", 3, s, 1, width)
+            body = b.conv(f"{name}_c3", 1, 1, 0, out, relu=False)
+            shortcut = block_in
+            if i == 0:
+                shortcut = b.conv(f"{name}_proj", 1, s, 0, out, src=block_in,
+                                  relu=False)
+            b.op("add", f"{name}_add", body, shortcut)
+            b.op("relu", f"{name}_relu")
+    b.op("global_pool", "gap")
+    b.op("dense", "FC", n_out=num_classes, relu=False)
+    return b.graph("resnet50", input_size, 3, compute_dtype)
+
+
 MODELS = {
     "lenet": lenet5,
     "alexnet": alexnet,
     "vgg16": vgg16,
     "resnet18": resnet18,
+    "resnet50": resnet50,
 }
 
 

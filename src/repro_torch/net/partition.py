@@ -130,6 +130,15 @@ class PartitionPlan:
     def n_launches(self) -> int:
         return len(self.pyramids)
 
+    def fused_convs(self) -> int:
+        """Convs inside launches of two or more conv levels."""
+        return sum(p.q_convs for p in self.pyramids if p.q_convs >= 2)
+
+    def joins(self) -> int:
+        """Residual joins (``add`` nodes) the forward runs between
+        launches."""
+        return sum(n.op == "add" for n in self.graph.nodes)
+
     def summary(self) -> str:
         rows = [
             f"  {p.name:<24} Q={p.q_convs} region={p.launch.out_region}"
@@ -409,6 +418,8 @@ def auto_partition(
             budget_model=budget.model,
             budget_bytes=budget.nbytes,
             launches=plan.n_launches(),
+            fused_convs=plan.fused_convs(),
+            joins=plan.joins(),
             hbm_bytes=plan.hbm_bytes(),
             modeled_cycles=plan.modeled_cycles(),
         )

@@ -37,8 +37,8 @@ float32 reference only by operand rounding, bounded by
 Observed and guarded forwards (DESIGN.md §12, §13): under
 ``repro_torch.obs.tracing()`` the forward keeps its compiled route and a
 replay records a ``runner.replay`` host span; only
-``tracing(launches=True)`` times each launch (CUDA events on a card, a
-synchronize after each) and records it as a span.  Under
+``tracing(launches=True)`` times each launch and each residual join (CUDA
+events on a card, a synchronize after each) and records it as a span.  Under
 ``repro_torch.robust.guarding()`` the forward runs
 :func:`repro_torch.robust.degrade.run_network_guarded` — preflight,
 per-launch sentinels and the degradation ladder.  The per-launch and the
@@ -62,11 +62,17 @@ from repro_torch.core.dtypes import canonical_dtype, torch_dtype
 from repro_torch.core.executor import conv2d_nhwc, full_fp32, maxpool_nhwc
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_conv.ops import flatten_weights, fused_pyramid
-from repro_torch.obs.trace import LaunchSpan, SpanTimer, device_label, get_tracer
+from repro_torch.obs.trace import (
+    JoinSpan,
+    LaunchSpan,
+    SpanTimer,
+    device_label,
+    get_tracer,
+)
 from repro_torch.robust.errors import PreflightError
 from repro_torch.robust.guard import get_guard
 
-from .graph import Graph, Node, infer_shapes
+from .graph import Graph, Node, infer_shapes, join_bytes, residual_joins
 from .partition import PartitionPlan, auto_partition
 
 Params = dict[str, tuple[torch.Tensor, torch.Tensor]]
@@ -211,6 +217,7 @@ def _forward(
     end_skip: bool,
     cdt: str,
     launch_wrapper=None,
+    op_wrapper=None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """The plan-driven forward loop, shared by the plain, the traced and
     the guarded path.  ``launch_wrapper(pyr, call, x_in)``, when given,
@@ -218,7 +225,9 @@ def _forward(
     guarded path (``repro_torch.robust.degrade``) runs its degradation
     ladder there, using ``x_in`` for replans and reference quarantines;
     ``call(**kw)`` re-issues the launch with keyword overrides, e.g.
-    ``call(plain=True)`` on the ladder's eager rung."""
+    ``call(plain=True)`` on the ladder's eager rung.  ``op_wrapper(n,
+    run)``, when given, wraps each plain op outside the pyramids (the
+    traced path times the residual joins there); ``run()`` computes it."""
     tdt = torch_dtype(cdt)
     graph = plan.graph
     covered = plan.covered()
@@ -274,8 +283,12 @@ def _forward(
             )
         elif n.op == "pool":
             values[n.name] = _pool_node(values[n.inputs[0]], n)
-        else:
+        elif op_wrapper is None:
             values[n.name] = _head_op(values, n, params, graph)
+        else:
+            values[n.name] = op_wrapper(
+                n, lambda n=n: _head_op(values, n, params, graph)
+            )
     return values[graph.output.name], skips
 
 
@@ -283,11 +296,37 @@ def _run_network_traced(x, params, tracer, *, plan, end_skip, cdt):
     """The observed forward: the same plan, every launch recorded as a
     :class:`LaunchSpan` whose modeled fields come straight from the plan
     and whose ``duration_ms`` is the launch's CUDA-event time (host wall
-    clock for CPU tensors), plus per-launch END-skip count events and one
-    ``run_network`` summary event."""
+    clock for CPU tensors), every residual join (its ``add`` and the
+    ``relu`` after it) as a :class:`JoinSpan` timed the same way, plus
+    per-launch END-skip count events and one ``run_network`` summary
+    event."""
     model = plan.graph.name
     batch = int(x.shape[0])
     device = device_label(x.device)
+    joins = residual_joins(plan.graph)
+    opens = {add for add, _ in joins}
+    closes = {relu or add: (add, relu) for add, relu in joins}
+    timers: dict[str, SpanTimer] = {}
+
+    def op_wrapper(n, run):
+        if n.name in opens:
+            timers[n.name] = SpanTimer(device=x.device).start()
+        y = run()
+        if n.name in closes:
+            add, relu = closes[n.name]
+            timer = timers.pop(add)
+            dur_ms = timer.stop_ms()
+            tracer.record_join(JoinSpan(
+                name=add,
+                model=model,
+                batch=batch,
+                compute_dtype=cdt,
+                hbm_bytes=join_bytes(plan.graph, add, relu, batch, cdt),
+                start_s=timer.start_s,
+                duration_ms=dur_ms,
+                device=device,
+            ))
+        return y
 
     def wrapper(pyr, call, x_in):
         timer = SpanTimer(device=x_in.device).start()
@@ -320,7 +359,7 @@ def _run_network_traced(x, params, tracer, *, plan, end_skip, cdt):
     t0 = time.perf_counter()
     logits, skips = _forward(
         x, params, plan=plan, end_skip=end_skip, cdt=cdt,
-        launch_wrapper=wrapper,
+        launch_wrapper=wrapper, op_wrapper=op_wrapper,
     )
     if logits.is_cuda:
         torch.cuda.synchronize(logits.device)
@@ -342,6 +381,7 @@ def _run_network_traced(x, params, tracer, *, plan, end_skip, cdt):
         batch=batch,
         compute_dtype=cdt,
         launches=len(skips),
+        joins=len(joins),
         wallclock_ms=total_ms,
         modeled_cycles=plan.modeled_cycles(),
     )
@@ -413,7 +453,8 @@ class _Compiled:
         """Copy ``x`` into the static input, replay on the current stream,
         and return clones of the static results: the next replay
         overwrites them.  Under a tracer the whole of it is one
-        ``runner.replay`` host span."""
+        ``runner.replay`` host span, which carries the plan's
+        ``fused_convs`` and ``joins``."""
         tracer = get_tracer()
         if tracer.enabled:
             span = tracer.begin("runner.replay")
@@ -423,8 +464,15 @@ class _Compiled:
         out = (self.logits.clone(),
                {k: v.clone() for k, v in self.skips.items()})
         if tracer.enabled:
-            tracer.end(span)
+            tracer.end(span, args=self._plan_counts())
         return out
+
+    def _plan_counts(self) -> dict | None:
+        """The kept plan's ``fused_convs`` and ``joins``."""
+        if not self.keep:
+            return None
+        plan = self.keep[0]
+        return {"fused_convs": plan.fused_convs(), "joins": plan.joins()}
 
 
 def _keyed_tensors(params: Params) -> tuple:

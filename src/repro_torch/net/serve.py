@@ -37,11 +37,14 @@ turns the runner into a service:
   graph on the card) is reused too — wave 2 of a bucket performs zero
   replans and zero captures (``repro_torch.net.runner.jit_trace_count``).
 * **Double-buffered input staging** — the reference's ``jax.device_put``:
-  bucket ``n+1``'s padded host batch goes into pinned host memory and is
+  bucket ``n+1``'s rows are padded straight into pinned host memory and
   copied ``non_blocking`` on a side CUDA stream while bucket ``n`` runs on
   the compute stream; an event orders the compute stream after the copy,
-  and the pinned buffer stays referenced until the batch is done.  The cost
-  model twin is :func:`repro_torch.core.cycle_model.serve_stream_cycles`.
+  and the pinned buffer stays referenced until the batch is done.  With
+  the resilience hooks off, a card keeps two batches dispatched: ``n+1``'s
+  forward queues behind ``n``'s before the host waits for ``n``, so the
+  host's work between batches never idles the card.  The cost model twin
+  is :func:`repro_torch.core.cycle_model.serve_stream_cycles`.
 * **Failure containment** — a launch that dies with a typed
   :class:`~repro_torch.robust.errors.RobustError` (including injected
   staging failures) fails *its batch* typed and the queue keeps draining.
@@ -323,6 +326,26 @@ class _Staged:
     pinned: torch.Tensor | None = None
     seq: int = 0
     dispatch_ns: int | None = None
+
+
+@dataclass
+class _Dispatched:
+    """One staged batch whose forward is queued: its route and breaker,
+    when it was dispatched, the logits (in pinned host memory, copied
+    ``non_blocking``, when ``pinned``), the guard's report, the event after
+    its work (None on the CPU), the typed error of a launch that failed and
+    whether an injected fault fired in it."""
+
+    staged: _Staged
+    route: str
+    breaker: CircuitBreaker | None
+    t0: float
+    logits: torch.Tensor | None = None
+    report: object = None
+    done: torch.cuda.Event | None = None
+    err: RobustError | None = None
+    injected: bool = False
+    pinned: bool = False
 
 
 # absolute floor of the watchdog's expected batch wall: N x a
@@ -705,39 +728,46 @@ class ServingEngine:
             )
         self._notify(result)
 
-    def _to_device(self, padded: np.ndarray, seq: int | None = None):
+    def _padded(self, batch: list[Request], bucket: int) -> torch.Tensor:
+        """The batch's rows, then zero rows up to ``bucket``, as one
+        float32 host tensor written where the copy reads it: pinned memory
+        on a card, so a batch costs one host copy of its pixels."""
+        shape = (bucket,) + tuple(batch[0].x.shape[1:])
+        host = torch.empty(shape, dtype=torch.float32,
+                           pin_memory=self.device.type == "cuda")
+        buf = host.numpy()
+        row = 0
+        for req in batch:
+            buf[row:row + req.rows] = req.x
+            row += req.rows
+        buf[row:] = 0
+        return host
+
+    def _to_device(self, host: torch.Tensor, seq: int | None = None):
         """Start the host→device copy of one padded float32 batch; returns
-        ``(x, ready, pinned)``.  On a card: the batch goes into pinned host
-        memory and is copied ``non_blocking`` on the engine's copy stream,
-        which records ``ready``; ``x`` is allocated on that stream.  On the
-        CPU ``x`` is the batch itself and ``ready``/``pinned`` are None.
-        Under a tracer the pinning is a ``serve.pin`` host span and the
-        copy's issue a ``serve.h2d`` one, of batch ``seq``."""
+        ``(x, ready, pinned)``.  On a card ``host`` is pinned and copied
+        ``non_blocking`` on the engine's copy stream, which records
+        ``ready``; ``x`` is allocated on that stream.  On the CPU ``x`` is
+        the batch itself and ``ready``/``pinned`` are None.  Under a tracer
+        the copy's issue is a ``serve.h2d`` host span of batch ``seq``."""
         tracer = get_tracer()
-        host = torch.from_numpy(np.ascontiguousarray(padded))
+        if tracer.enabled:
+            span = tracer.begin("serve.h2d", batch=seq)
         if self.device.type != "cuda":
-            if tracer.enabled:
-                span = tracer.begin("serve.h2d", batch=seq)
             x = host.to(self.device)
             if tracer.enabled:
                 tracer.end(span)
             return x, None, None
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
-        if tracer.enabled:
-            span = tracer.begin("serve.pin", batch=seq)
-        pinned = host.pin_memory()
-        if tracer.enabled:
-            tracer.end(span)
-            span = tracer.begin("serve.h2d", batch=seq)
         with torch.cuda.stream(self._copy_stream):
             x = torch.empty(host.shape, dtype=host.dtype, device=self.device)
-            x.copy_(pinned, non_blocking=True)
+            x.copy_(host, non_blocking=True)
             ready = torch.cuda.Event()
             ready.record(self._copy_stream)
         if tracer.enabled:
             tracer.end(span)
-        return x, ready, pinned
+        return x, ready, host
 
     def _stage(self, batch: list[Request], seq: int) -> _Staged:
         """Pad batch ``seq`` to its bucket and start its host→device copy —
@@ -756,14 +786,12 @@ class ServingEngine:
             inj = get_injector()
             if inj.enabled:
                 inj.fire("stage", self._launch_name(bucket))
-            host = np.concatenate([r.x for r in batch], axis=0)
-            padded = pad_to_bucket(host, bucket).astype(np.float32,
-                                                        copy=False)
+            host = self._padded(batch, bucket)
         finally:
             if tracer.enabled:
                 tracer.end(span)
         return _Staged(batch, bucket, entry,
-                       *self._to_device(padded, seq), seq=seq)
+                       *self._to_device(host, seq), seq=seq)
 
     def _next_staged(self) -> _Staged | None:
         """Form and stage the next batch, failing staging-faulted batches
@@ -939,172 +967,216 @@ class ServingEngine:
         done.record(torch.cuda.current_stream(self.device))
         return done
 
+    def _depth(self, inj) -> int:
+        """How many batches the drain loop keeps dispatched at once.  Two
+        on a card with every resilience hook off: batch ``n+1``'s launches
+        queue behind batch ``n``'s, so the host's work between them (the
+        wait, the results, the next dispatch) runs under the card's work
+        instead of between it.  One otherwise — the breaker, watchdog,
+        sentinel, guard and injected faults judge each batch before the
+        next is dispatched, and the deadlines are calibrated on batch walls
+        that do not wait behind another batch — and on the CPU, where a
+        forward is done when it returns."""
+        c = self.config
+        if (self.device.type != "cuda" or inj.enabled or c.guarded
+                or c.deadline_aware or c.output_sentinel
+                or c.watchdog_factor is not None
+                or c.breaker_threshold is not None):
+            return 1
+        return 2
+
+    def _dispatch(self, staged: _Staged, inj, depth: int) -> _Dispatched:
+        """Queue one staged batch's forward on the compute stream along
+        its breaker's route.  With another batch to queue behind it
+        (``depth`` 2) the logits' copy to pinned host memory queues too,
+        so reading them waits for this batch alone."""
+        breaker = self._breaker(staged.bucket)
+        route = "fused"
+        if breaker is not None and not breaker.allow():
+            route = breaker.pinned_rung or "reference"
+        d = _Dispatched(staged, route, breaker, time.perf_counter())
+        tracer = get_tracer()
+        fired = len(inj.fired)
+        if tracer.enabled:
+            span = tracer.begin("serve.dispatch", batch=staged.seq)
+            staged.dispatch_ns = span.start_ns
+        try:
+            self._await_staging(staged)
+            d.logits, d.report = self._run_route(route, staged.entry,
+                                                 staged.x)
+            if depth > 1 and d.logits.is_cuda:
+                host = torch.empty(d.logits.shape, dtype=d.logits.dtype,
+                                   pin_memory=True)
+                d.logits = host.copy_(d.logits, non_blocking=True)
+                d.pinned = True
+            d.done = self._launch_done()
+        except RobustError as e:
+            d.err = e
+        if tracer.enabled:
+            tracer.end(span)
+        # faults fired by this batch's own launch (the next batch's
+        # staging fires its own)
+        d.injected = self._injected(inj, fired)
+        return d
+
+    def _finish(self, d: _Dispatched, inj) -> list[RequestResult]:
+        """Wait for a dispatched batch, run the resilience hooks on it and
+        deliver its results (or fail it typed)."""
+        staged, route, breaker = d.staged, d.route, d.breaker
+        batch, bucket, entry, seq = (staged.batch, staged.bucket,
+                                     staged.entry, staged.seq)
+        tracer = get_tracer()
+        logits, report, err, injected = d.logits, d.report, d.err, d.injected
+        sentinel_tripped = False
+        if err is None:
+            if d.done is not None:
+                if tracer.enabled:
+                    span = tracer.begin("serve.sync", batch=seq)
+                d.done.synchronize()
+                if tracer.enabled:
+                    tracer.end(span)
+            if d.pinned:
+                logits = logits.clone()  # the pinned buffer goes back
+            with self._lock:
+                self.route_batches[(bucket, route)] += 1
+            if inj.enabled:
+                fired = len(inj.fired)
+                delay = inj.launch_delay(self._launch_name(bucket))
+                if delay:
+                    time.sleep(delay)
+                if route == "fused":
+                    logits = inj.corrupt_output(
+                        self._launch_name(bucket), logits
+                    )
+                injected = injected or self._injected(inj, fired)
+            finite = True
+            if self.config.output_sentinel:
+                if tracer.enabled:
+                    span = tracer.begin("serve.sentinel", batch=seq)
+                finite = bool(torch.isfinite(logits.float()).all())
+                if tracer.enabled:
+                    tracer.end(span)
+            if not finite:
+                sentinel_tripped = True
+                with self._lock:
+                    self.resilience["sentinel_trips"] += 1
+                if tracer.enabled:
+                    tracer.record_event(
+                        "serve_sentinel",
+                        model=self.graph.name, bucket=bucket,
+                        route=route,
+                        action="reference_retry" if injected else "fail",
+                    )
+                if injected:
+                    logits = self._run_route("reference", entry, staged.x)[0]
+                else:
+                    err = NumericError(
+                        f"bucket {bucket}: non-finite logits on"
+                        f" route {route!r}",
+                        bucket=bucket, route=route,
+                    )
+        wall_ms = (time.perf_counter() - d.t0) * 1e3
+        wd_tripped = False
+        if err is None and self.config.watchdog_factor is not None:
+            thresh_ms = self._watchdog_threshold_ms(bucket, entry)
+            if (thresh_ms is not None
+                    and wall_ms > self.config.watchdog_factor * thresh_ms):
+                wd_tripped = True
+                limit_ms = self.config.watchdog_factor * thresh_ms
+                with self._lock:
+                    self.resilience["watchdog_trips"] += 1
+                if tracer.enabled:
+                    tracer.record_event(
+                        "serve_watchdog",
+                        model=self.graph.name, bucket=bucket,
+                        wall_ms=wall_ms, threshold_ms=limit_ms,
+                        route=route,
+                    )
+                if not injected:
+                    err = WatchdogError(
+                        f"bucket {bucket}: batch took {wall_ms:.1f}ms,"
+                        f" over the watchdog's {limit_ms:.1f}ms",
+                        bucket=bucket, route=route,
+                        wall_ms=round(wall_ms, 3),
+                        threshold_ms=round(limit_ms, 3),
+                    )
+        if breaker is not None and route == "fused":
+            degraded = report is not None and report.degraded
+            failed = (err is not None or wd_tripped
+                      or sentinel_tripped or degraded)
+            if not failed:
+                breaker.record_success()
+            elif injected:
+                breaker.record_failure(
+                    rung=self._pin_rung(report, sentinel_tripped)
+                )
+            elif breaker.state == HALF_OPEN:
+                # a probe that failed on its own: re-open with the pin an
+                # injected fault set; the batch fails typed
+                breaker.record_failure()
+            self._flush_breaker(bucket, breaker)
+        if err is not None:
+            self._fail_batch(batch, bucket, err, wall_ms, seq=seq,
+                             dispatch_ns=staged.dispatch_ns)
+        else:
+            self._record(
+                batch, bucket, entry, logits, wall_ms, route=route,
+                calibrate=not (wd_tripped or sentinel_tripped),
+                seq=seq, dispatch_ns=staged.dispatch_ns,
+            )
+        return [self.results[r.id] for r in batch]
+
     def drain(self) -> list[RequestResult]:
         """Execute the queue to empty; returns the drained batches' results
         in completion order (failed batches included, with typed errors).
 
-        The loop is the double-buffered pipeline: dispatch bucket ``n``
-        (its launches queue on the compute stream), stage bucket ``n+1``
-        (its copy queues on the copy stream), then wait for ``n`` — the
-        ``n+1`` copy rides under ``n``'s compute.  Around that sit the
-        resilience hooks (each a no-op unless configured/armed): injected
-        queue stalls, breaker routing, the slow-launch delay, the output
+        The loop is a pipeline: dispatch bucket ``n`` (its launches queue
+        on the compute stream), stage bucket ``n+1`` (its copy queues on
+        the copy stream, under ``n``'s compute), and — with ``n+1``
+        dispatched behind ``n`` when :meth:`_depth` allows two in flight —
+        then wait for ``n`` and deliver it.  Around that sit the resilience
+        hooks (each a no-op unless configured/armed): injected queue
+        stalls, breaker routing, the slow-launch delay, the output
         sentinel, the watchdog, and typed batch failure.
 
         Under a tracer each stretch of the loop's host work is a host span
         carrying its batch's sequence number: ``serve.form``,
-        ``serve.pad``, ``serve.pin`` and ``serve.h2d`` (staging),
-        ``serve.dispatch`` (ordering after the copy and the forward, whose
-        replay is its child ``runner.replay``), ``serve.sync`` (the host
-        waiting on the device), ``serve.sentinel`` and ``serve.record``;
-        each request gets a ``serve.request`` span stamped with its
-        batch's dispatch."""
+        ``serve.pad`` and ``serve.h2d`` (staging), ``serve.dispatch``
+        (ordering after the copy and the forward, whose replay is its
+        child ``runner.replay``), ``serve.sync`` (the host waiting on the
+        device), ``serve.sentinel`` and ``serve.record``; each request gets
+        a ``serve.request`` span stamped with its batch's dispatch."""
         completed: list[RequestResult] = []
         inj = get_injector()
         with self._drain_lock:
+            depth = self._depth(inj)
+            inflight: deque[_Dispatched] = deque()
+            delivered = 0.0  # when the last batch's results went out
             staged = self._next_staged()
-            while staged is not None:
-                if inj.enabled and inj.queue_stalled():
-                    with self._lock:
-                        self.resilience["stalls"] += 1
-                    tracer = get_tracer()
-                    if tracer.enabled:
-                        tracer.record_event(
-                            "serve_stall", model=self.graph.name
-                        )
-                    time.sleep(0.001)
-                    continue
-                batch, bucket, entry = staged.batch, staged.bucket, staged.entry
-                breaker = self._breaker(bucket)
-                route = "fused"
-                if breaker is not None and not breaker.allow():
-                    route = breaker.pinned_rung or "reference"
-                seq = staged.seq
-                tracer = get_tracer()
-                t0 = time.perf_counter()
-                err: RobustError | None = None
-                logits = report = done = None
-                fired = len(inj.fired)
-                if tracer.enabled:
-                    span = tracer.begin("serve.dispatch", batch=seq)
-                    staged.dispatch_ns = span.start_ns
-                try:
-                    self._await_staging(staged)
-                    logits, report = self._run_route(route, entry, staged.x)
-                    done = self._launch_done()
-                except RobustError as e:
-                    err = e
-                if tracer.enabled:
-                    tracer.end(span)
-                # faults fired by this batch's own launch (the next batch's
-                # staging below fires its own)
-                injected = self._injected(inj, fired)
-                staged_next = self._next_staged()
-                sentinel_tripped = False
-                if err is None:
-                    if done is not None:
-                        if tracer.enabled:
-                            span = tracer.begin("serve.sync", batch=seq)
-                        done.synchronize()
-                        if tracer.enabled:
-                            tracer.end(span)
-                    with self._lock:
-                        self.route_batches[(bucket, route)] += 1
-                    if inj.enabled:
-                        fired = len(inj.fired)
-                        delay = inj.launch_delay(self._launch_name(bucket))
-                        if delay:
-                            time.sleep(delay)
-                        if route == "fused":
-                            logits = inj.corrupt_output(
-                                self._launch_name(bucket), logits
-                            )
-                        injected = injected or self._injected(inj, fired)
-                    finite = True
-                    if self.config.output_sentinel:
-                        if tracer.enabled:
-                            span = tracer.begin("serve.sentinel", batch=seq)
-                        finite = bool(torch.isfinite(logits.float()).all())
-                        if tracer.enabled:
-                            tracer.end(span)
-                    if not finite:
-                        sentinel_tripped = True
+            while staged is not None or inflight:
+                if staged is not None:
+                    if inj.enabled and inj.queue_stalled():
                         with self._lock:
-                            self.resilience["sentinel_trips"] += 1
+                            self.resilience["stalls"] += 1
+                        tracer = get_tracer()
                         if tracer.enabled:
                             tracer.record_event(
-                                "serve_sentinel",
-                                model=self.graph.name, bucket=bucket,
-                                route=route,
-                                action=(
-                                    "reference_retry" if injected else "fail"
-                                ),
+                                "serve_stall", model=self.graph.name
                             )
-                        if injected:
-                            logits = self._run_route(
-                                "reference", entry, staged.x
-                            )[0]
-                        else:
-                            err = NumericError(
-                                f"bucket {bucket}: non-finite logits on"
-                                f" route {route!r}",
-                                bucket=bucket, route=route,
-                            )
-                wall_ms = (time.perf_counter() - t0) * 1e3
-                wd_tripped = False
-                if (err is None
-                        and self.config.watchdog_factor is not None):
-                    thresh_ms = self._watchdog_threshold_ms(bucket, entry)
-                    if (thresh_ms is not None and wall_ms
-                            > self.config.watchdog_factor * thresh_ms):
-                        wd_tripped = True
-                        limit_ms = self.config.watchdog_factor * thresh_ms
-                        with self._lock:
-                            self.resilience["watchdog_trips"] += 1
-                        if tracer.enabled:
-                            tracer.record_event(
-                                "serve_watchdog",
-                                model=self.graph.name, bucket=bucket,
-                                wall_ms=wall_ms,
-                                threshold_ms=limit_ms,
-                                route=route,
-                            )
-                        if not injected:
-                            err = WatchdogError(
-                                f"bucket {bucket}: batch took"
-                                f" {wall_ms:.1f}ms, over the watchdog's"
-                                f" {limit_ms:.1f}ms",
-                                bucket=bucket, route=route,
-                                wall_ms=round(wall_ms, 3),
-                                threshold_ms=round(limit_ms, 3),
-                            )
-                if breaker is not None and route == "fused":
-                    degraded = report is not None and report.degraded
-                    failed = (err is not None or wd_tripped
-                              or sentinel_tripped or degraded)
-                    if not failed:
-                        breaker.record_success()
-                    elif injected:
-                        breaker.record_failure(
-                            rung=self._pin_rung(report, sentinel_tripped)
-                        )
-                    elif breaker.state == HALF_OPEN:
-                        # a probe that failed on its own: re-open with the
-                        # pin an injected fault set; the batch fails typed
-                        breaker.record_failure()
-                    self._flush_breaker(bucket, breaker)
-                if err is not None:
-                    self._fail_batch(batch, bucket, err, wall_ms, seq=seq,
-                                     dispatch_ns=staged.dispatch_ns)
-                else:
-                    self._record(
-                        batch, bucket, entry, logits, wall_ms,
-                        route=route,
-                        calibrate=not (wd_tripped or sentinel_tripped),
-                        seq=seq, dispatch_ns=staged.dispatch_ns,
-                    )
-                completed.extend(self.results[r.id] for r in batch)
-                staged = staged_next
+                        time.sleep(0.001)
+                        continue
+                    inflight.append(self._dispatch(staged, inj, depth))
+                    staged = self._next_staged()
+                    if staged is not None and len(inflight) < depth:
+                        continue
+                d = inflight.popleft()
+                # a batch queued behind another is timed from that one's
+                # delivery, so the bucket's walls add up to the elapsed time
+                d.t0 = max(d.t0, delivered)
+                completed.extend(self._finish(d, inj))
+                delivered = time.perf_counter()
+                if staged is None and depth > 1:
+                    staged = self._next_staged()
         return completed
 
     def serve(self, xs) -> list[RequestResult]:

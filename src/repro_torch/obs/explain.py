@@ -2,7 +2,8 @@
 
 Prints the auto-partition of a zoo model as a per-launch table (covered
 nodes, Q, grid, regime, plan knobs, modeled HBM bytes, the working set
-under the plan's budget with its headroom, modeled cycles), and
+under the plan's budget with its headroom, modeled cycles), beside it the
+residual joins run between the launches (map, bytes moved), and
 optionally:
 
 * ``--trace out.json`` — export a Chrome-trace / Perfetto JSON of every
@@ -11,8 +12,9 @@ optionally:
   traced ``run_network`` ride alongside.
 * ``--run`` — execute the plan with per-launch tracing
   (``tracing(launches=True)``: one untraced warm-up, then ``--reps``
-  forwards timed launch by launch) and print the model-vs-measured drift
-  table (:mod:`repro_torch.obs.report`).
+  forwards timed launch by launch and join by join) and print the
+  model-vs-measured drift table and the joins' measured times
+  (:mod:`repro_torch.obs.report`).
 * ``--guard`` — execute the plan under the guarded runtime
   (:mod:`repro_torch.robust`) and print the fallback table: which launches
   ran clean and which rung of the degradation ladder each degraded launch
@@ -77,6 +79,31 @@ def plan_table(plan, budget, out=print) -> None:
         f"({plan.modeled_cycles() / DEFAULT_PARAMS.freq_mhz:,.1f} us at "
         f"{DEFAULT_PARAMS.freq_mhz:g} MHz)"
     )
+
+
+def join_table(plan, out=print) -> None:
+    """The residual joins (``add`` + ``relu``) the forward runs as plain
+    ops between the plan's launches: each with its map and the bytes it
+    moves at the plan's batch and dtype.  Prints nothing for a graph
+    without joins."""
+    from repro_torch.net.graph import infer_shapes, join_bytes, residual_joins
+
+    joins = residual_joins(plan.graph)
+    if not joins:
+        return
+    shapes = infer_shapes(plan.graph)
+    out(f"{'join':<26} {'relu':<14} {'map':>14} {'hbm':>9}")
+    total = 0
+    for add, relu in joins:
+        s = shapes[add]
+        moved = join_bytes(plan.graph, add, relu, plan.batch,
+                           plan.compute_dtype)
+        total += moved
+        out(f"{add:<26} {relu or '-':<14} "
+            f"{f'{s.size}x{s.size}x{s.channels}':>14} "
+            f"{_fmt_bytes(moved):>9}")
+    out(f"joins: {len(joins)}, {total:,} bytes; "
+        f"{plan.fused_convs()} convs in launches of two or more")
 
 
 def serve_table(summary: dict, out=print) -> None:
@@ -261,6 +288,7 @@ def main(argv: list[str] | None = None) -> int:
         f" {_fmt_bytes(budget.nbytes)}"
     )
     plan_table(plan, budget)
+    join_table(plan)
     info = partition_cache_info()
     print(
         f"partition cache: {info.hits} hits / {info.misses} misses "
@@ -294,7 +322,9 @@ def main(argv: list[str] | None = None) -> int:
         from repro_torch.obs.report import (
             drift_report,
             drift_rows_from_spans,
+            format_joins,
             format_report,
+            join_rows_from_spans,
         )
         from repro_torch.obs.trace import device_label, tracing
 
@@ -313,6 +343,8 @@ def main(argv: list[str] | None = None) -> int:
         print()
         format_report(drift_report(drift_rows_from_spans(collector.spans)),
                       measured_on=label)
+        format_joins(join_rows_from_spans(collector.join_spans),
+                     measured_on=label)
 
     if args.trace:
         from repro_torch.obs.timeline import chrome_trace, write_chrome_trace

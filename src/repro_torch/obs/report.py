@@ -15,7 +15,9 @@ wrongly *relative to its peers*.
 
 Inputs: spans from a traced ``run_network`` (:func:`drift_rows_from_spans`)
 or a benchmark JSON in the reference's ``BENCH_pyramid.json`` schema
-(:func:`drift_rows_from_bench`).  CLI::
+(:func:`drift_rows_from_bench`).  The residual joins a traced forward
+runs between its launches have no modeled cost; they are listed beside
+the launches (:func:`join_rows_from_spans`, :func:`format_joins`).  CLI::
 
     PYTHONPATH=src python -m repro_torch.obs.report --bench BENCH_pyramid.json
 """
@@ -60,6 +62,53 @@ def drift_rows_from_spans(spans) -> list[dict]:
             }
         )
     return rows
+
+
+def join_rows_from_spans(spans) -> list[dict]:
+    """One row per distinct residual join from traced join spans
+    (:class:`~repro_torch.obs.trace.JoinSpan`): the measured median of its
+    repetitions, the bytes it moves and the rate that makes.  Joins have
+    no modeled cost, so they stand beside the drift rows, not in them."""
+    groups: dict[tuple, list] = {}
+    for s in spans:
+        key = (s.model, s.name, s.compute_dtype, s.batch)
+        groups.setdefault(key, []).append(s)
+    rows = []
+    for (model, name, dtype, batch), ss in groups.items():
+        measured = statistics.median(s.duration_ms for s in ss)
+        moved = ss[0].hbm_bytes
+        rows.append(
+            {
+                "join": f"{model}/{name}",
+                "compute_dtype": dtype,
+                "batch": batch,
+                "reps": len(ss),
+                "hbm_bytes": moved,
+                "measured_ms": measured,
+                "gb_per_s": moved / measured / 1e6 if measured else 0.0,
+            }
+        )
+    return rows
+
+
+def format_joins(rows: list[dict], out=print, *, measured_on: str = "") -> None:
+    """Print the join rows in graph order and their sum, measured on
+    ``measured_on``."""
+    if not rows:
+        return
+    out("residual joins (add + relu), measured_ms: "
+        + (measured_on or "the measuring device"))
+    out(f"{'join':<36} {'dtype':<9} {'hbm':>13} {'measured_ms':>11} "
+        f"{'GB/s':>8}")
+    for r in rows:
+        out(
+            f"{r['join']:<36} {r['compute_dtype']:<9} {r['hbm_bytes']:>13,} "
+            f"{r['measured_ms']:>11.4f} {r['gb_per_s']:>8.1f}"
+        )
+    out(
+        f"joins: {len(rows)}, {sum(r['hbm_bytes'] for r in rows):,} bytes, "
+        f"{sum(r['measured_ms'] for r in rows):.4f} ms"
+    )
 
 
 def drift_rows_from_bench(bench: dict) -> list[dict]:

@@ -1,11 +1,13 @@
 """Structured tracing: launch spans, host spans, events, and the global hook.
 
 A stdlib copy of the reference package's ``repro.obs.trace``, plus host
-spans.  One :class:`LaunchSpan` is recorded per fused-pyramid launch when
-the collector asks for them — the plan's static knobs and modeled costs
-(what the planner promised) next to the measured launch time (what the
-launch did).  :class:`HostSpan` records a stretch of host work at a layer
-boundary of the serving path (admission, a batch's formation, staging,
+spans and join spans.  One :class:`LaunchSpan` is recorded per
+fused-pyramid launch when the collector asks for them — the plan's static
+knobs and modeled costs (what the planner promised) next to the measured
+launch time (what the launch did) — and one :class:`JoinSpan` per residual
+join run between them (its ``add`` and ``relu``, the bytes they move).
+:class:`HostSpan` records a stretch of host work at a layer boundary of
+the serving path (admission, a batch's formation, staging,
 dispatch, wait and record, the replayed forward) on the host's
 ``time.perf_counter_ns`` clock.  :class:`TraceEvent` covers everything that
 is neither: ``auto_partition`` cache hits/misses, per-level END-skip
@@ -28,11 +30,11 @@ A collector leaves the forward's route alone: ``run_network`` replays its
 compiled forward and records one ``runner.replay`` host span.  Per-launch
 spans need ``tracing(launches=True)``: then the runner
 (:func:`repro_torch.net.runner.run_network`) runs the forward launch by
-launch and times each with a :class:`SpanTimer` — CUDA events on the
-launch's stream when the input lives on a CUDA device (a synchronize after
-each launch), the host clock otherwise (CPU tensors complete
-synchronously).  Each launch span names the device it was measured on
-(:func:`device_label`).
+launch and times each launch and each join with a :class:`SpanTimer` —
+CUDA events on the launch's stream when the input lives on a CUDA device
+(a synchronize after each launch), the host clock otherwise (CPU tensors
+complete synchronously).  Each launch span names the device it was
+measured on (:func:`device_label`).
 
 Each host span is also opened as a profiler range of the same name.  On a
 thread a running profiler records, both copies exist, and the offset
@@ -103,7 +105,8 @@ class HostSpan(NamedTuple):
     batch the work belongs to, ``request`` the request's id, ``parent`` the
     ``id`` of the span open around it on its thread.  A request span's
     ``dispatch_ns`` is when its batch's ``serve.dispatch`` began (``None``
-    when its batch failed before dispatch)."""
+    when its batch failed before dispatch).  ``args`` holds what the
+    span's site adds: ``runner.replay``'s ``fused_convs`` and ``joins``."""
 
     id: int
     name: str
@@ -114,6 +117,26 @@ class HostSpan(NamedTuple):
     request: int | None = None
     parent: int | None = None
     dispatch_ns: int | None = None
+    args: dict | None = None
+
+
+@dataclass(frozen=True)
+class JoinSpan:
+    """One residual join: a graph's ``add`` and the ``relu`` that consumes
+    it, run between launches as plain ops.  ``hbm_bytes`` is what the join
+    moves at the batch (the add reads two maps and writes one, the relu
+    reads and writes one); ``start_s`` and ``duration_ms`` are measured as
+    a :class:`LaunchSpan`'s are."""
+
+    name: str  # the add node, e.g. "b0_add"
+    model: str
+    batch: int
+    compute_dtype: str
+    hbm_bytes: int
+    start_s: float
+    duration_ms: float
+    device: str = "cpu"
+    kind: str = "join"
 
 
 class _Open:
@@ -138,6 +161,7 @@ class TraceCollector:
     def __init__(self, *, launches: bool = False) -> None:
         self.launches = launches
         self.spans: list[LaunchSpan] = []
+        self.join_spans: list[JoinSpan] = []
         self.host_spans: list[HostSpan] = []
         self.events: list[TraceEvent] = []
         self._ids = itertools.count()
@@ -151,6 +175,9 @@ class TraceCollector:
 
     def record_span(self, span: LaunchSpan) -> None:
         self.spans.append(span)
+
+    def record_join(self, span: JoinSpan) -> None:
+        self.join_spans.append(span)
 
     def record_event(self, name: str, **args) -> None:
         self.events.append(
@@ -182,10 +209,11 @@ class TraceCollector:
         return span
 
     def end(self, span: _Open, *, batch: int | None = None,
-            request: int | None = None) -> None:
+            request: int | None = None, args: dict | None = None) -> None:
         """Close ``span`` (and any span left open inside it by an
         exception, which is dropped) and record it; ``batch`` and
-        ``request`` fill in what was not known when it began."""
+        ``request`` fill in what was not known when it began, ``args``
+        what the site adds."""
         end_ns = time.perf_counter_ns()
         stack = self._stack()
         while span in stack:
@@ -199,6 +227,7 @@ class TraceCollector:
             span.batch if batch is None else batch,
             span.request if request is None else request,
             span.parent,
+            args=args,
         ))
 
     def add_span(self, name: str, start_ns: int, end_ns: int, **ids) -> None:
@@ -216,10 +245,14 @@ class _NullTracer:
     enabled = False
     launches = False
     spans: tuple = ()
+    join_spans: tuple = ()
     host_spans: tuple = ()
     events: tuple = ()
 
     def record_span(self, span: LaunchSpan) -> None:
+        pass
+
+    def record_join(self, span: JoinSpan) -> None:
         pass
 
     def record_event(self, name: str, **args) -> None:

@@ -276,6 +276,33 @@ def test_run_network_on_cuda(cuda, model, dtype):
     assert len(skips) == plan.n_launches()
 
 
+def test_resnet50_full_size_batch_32_on_cuda(cuda):
+    """ResNet-50 v1.5 at 224², batch 32, on the card's plan (ten fused
+    1x1-into-3x3 pairs, linear 1x1 launches, sixteen joins):
+    ``run_network``'s logits against ``reference_network`` to the f32
+    contract, and its skip maps equal to those of the plain path on the
+    CPU."""
+    graph = MODELS["resnet50"]()
+    params = init_network_params(graph, seed=0, device="cpu")
+    x = torch.randn((32, 224, 224, 3),
+                    generator=torch.Generator().manual_seed(1))
+    plan = auto_partition(graph, batch=32)
+    assert plan.fused_convs() == 20 and plan.n_launches() == 43
+    on_card = {k: (w.to(cuda), b.to(cuda)) for k, (w, b) in params.items()}
+    logits, skips = run_network(
+        x.to(cuda), prepare_network_params(plan, on_card), plan=plan
+    )
+    ref = reference_network(x.to(cuda), graph, on_card)
+    err = float((logits - ref).abs().max())
+    assert err <= 1e-4 * max(1.0, float(ref.abs().max()))
+    _, plain_skips = run_network(
+        x, prepare_network_params(plan, params), plan=plan
+    )
+    assert list(skips) == list(plain_skips) == [p.name for p in plan.pyramids]
+    for name, skip in skips.items():
+        assert torch.equal(skip.cpu(), plain_skips[name]), name
+
+
 def test_traced_run_times_launches_with_cuda_events(cuda):
     graph = MODELS["lenet"](input_size=32, num_classes=10)
     params = init_network_params(graph, seed=0, device=cuda)
@@ -722,8 +749,38 @@ def test_traced_engine_replays_its_graphs(cuda):
         seq = parent.batch
         assert (spans[("serve.h2d", seq)].end_ns <= parent.start_ns
                 <= parent.end_ns <= spans[("serve.sync", seq)].start_ns)
-        assert ("serve.pin", seq) in spans and ("serve.record", seq) in spans
+        assert ("serve.pad", seq) in spans and ("serve.record", seq) in spans
 
+
+def test_engine_keeps_two_batches_in_flight(cuda):
+    """With the resilience hooks off the card's drain loop dispatches
+    batch n+1 before it waits for batch n, reads each batch's logits from
+    its own pinned copy, and answers every request as a one-deep loop
+    does."""
+    graph, master, eng = _lenet_engine(cuda)
+    _, _, one = _lenet_engine(cuda)
+    one._depth = lambda inj: 1
+    from repro_torch.robust.faults import get_injector
+
+    assert eng._depth(get_injector()) == 2
+    stream = [_lenet_images(4, 60 + i) for i in range(6)]
+    eng.serve(stream[:1])  # captures bucket 4
+    with tracing() as col:
+        results = eng.serve(stream)
+    want = one.serve(stream)
+    spans = {(s.name, s.batch): s for s in col.host_spans}
+    seqs = sorted(b for n, b in spans if n == "serve.sync")
+    assert len(seqs) == 6
+    for n, m in zip(seqs, seqs[1:]):
+        assert (spans[("serve.dispatch", m)].end_ns
+                <= spans[("serve.sync", n)].start_ns)
+    for x, res, res1 in zip(stream, results, want):
+        ref = reference_network(torch.from_numpy(x).to(cuda), graph, master)
+        assert res.ok and res1.ok
+        assert float(np.abs(res.logits - ref.cpu().numpy()).max()) \
+            <= _tol(ref, torch.float32)
+        assert float(np.abs(res.logits - res1.logits).max()) \
+            <= _tol(ref, torch.float32)
 
 def test_frontend_on_the_card(cuda):
     """4 producer threads x 8 requests through the frontend, all CUDA work

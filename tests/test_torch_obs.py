@@ -37,6 +37,8 @@ from repro_torch.obs.trace import LaunchSpan, SpanTimer, tracing  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 DTYPES = ("float32", "bfloat16")
+# the zoo models both packages have (ResNet-50 is the port's alone)
+SHARED = sorted(set(MODELS) & set(JMODELS))
 
 
 def _plans(model, dtype):
@@ -83,7 +85,7 @@ def test_span_timer_on_the_cpu():
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("model", sorted(MODELS))
+@pytest.mark.parametrize("model", SHARED)
 def test_modeled_timelines_equal_the_reference(model, dtype):
     """Every launch of every zoo plan: the grid timeline (at two elision
     levels, and with the serial knobs) and the per-cell detail, segment for
@@ -107,7 +109,7 @@ def test_modeled_timelines_equal_the_reference(model, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("model", sorted(MODELS))
+@pytest.mark.parametrize("model", SHARED)
 def test_modeled_chrome_trace_equals_the_reference(model, dtype):
     plan, jplan = _plans(model, dtype)
     trace = timeline.chrome_trace(

@@ -2,8 +2,11 @@
 
 Under ``tracing()`` the serving engine's drain loop, its admission and the
 front end's wait record host spans that carry their batch's sequence
-number; ``run_network`` keeps its compiled route (per-launch spans only
-with ``tracing(launches=True)``); the default tracer builds no span; and
+number; ``run_network`` keeps its compiled route (per-launch spans, and
+a span per residual join, only with ``tracing(launches=True)``); the
+``auto_partition`` event and the ``runner.replay`` span carry the plan's
+fused convs and joins, which the reports list; the default tracer builds
+no span; and
 the benchmark's ``cardbench.program_trace.profiler_offset_us`` maps a
 span of a thread the profiler does not record onto the profiler's
 timeline.  All on the CPU, with no timing thresholds: every check is an
@@ -20,7 +23,12 @@ import torch
 from cardbench.program_trace import profiler_offset_us
 from repro_torch.net import runner
 from repro_torch.net.frontend import ServingFrontend
-from repro_torch.net.graph import MODELS
+from repro_torch.net.graph import (
+    MODELS,
+    infer_shapes,
+    join_bytes,
+    residual_joins,
+)
 from repro_torch.net.partition import auto_partition
 from repro_torch.net.runner import (
     init_network_params,
@@ -106,6 +114,24 @@ def test_drain_records_each_stage_span_once_a_batch():
     assert len(empty) == 1
     assert not col.spans  # no launch span without the explicit request
 
+
+def test_two_batches_in_flight_dispatch_ahead(monkeypatch):
+    """With two batches in flight (a card's default, forced here) each
+    batch's stage spans keep their order and the drain thread's spans still
+    never overlap, and batch n+1 is dispatched before batch n's results
+    are recorded."""
+    eng = _engine()
+    monkeypatch.setattr(eng, "_depth", lambda inj: 2)
+    with tracing() as col:
+        ids = [eng.submit(_images(2, seed=s)) for s in range(8)]
+        eng.drain()
+    assert all(eng.results[i].ok for i in ids)
+    batches = _check_drain_spans(col, CPU_STAGES)
+    assert sorted(batches) == [0, 1, 2, 3]
+    span = {(s.name, s.batch): s for s in col.host_spans}
+    for n in range(3):
+        assert (span[("serve.dispatch", n + 1)].end_ns
+                <= span[("serve.record", n)].start_ns)
 
 def test_sentinel_is_a_span_of_its_batch():
     eng = _engine(output_sentinel=True)
@@ -323,3 +349,126 @@ def test_offset_from_mirrored_pairs(offset_us):
     got = profiler_offset_us(events, spans)
     assert got == pytest.approx(offset_us, abs=1.0)
     assert profiler_offset_us(events[:0], spans) is None
+
+
+# ---------------------------------------------------------------------------
+# residual joins and fused-level counts (ResNet-50 at 32 x 32)
+# ---------------------------------------------------------------------------
+
+
+def _resnet50_plan(batch=2):
+    graph = MODELS["resnet50"](input_size=32, num_classes=10)
+    plan = auto_partition(graph, batch=batch)
+    params = prepare_network_params(
+        plan, init_network_params(graph, seed=3, device="cpu")
+    )
+    x = torch.randn((batch, 32, 32, 3),
+                    generator=torch.Generator().manual_seed(4))
+    return plan, params, x
+
+
+def test_join_spans_time_each_residual_join():
+    """Under ``tracing(launches=True)`` each add and the relu after it is
+    one join span, named by its add, in graph order, with the bytes the
+    pair moves; the forward's logits are the untraced ones."""
+    plan, params, x = _resnet50_plan()
+    runner.clear_compiled_cache()
+    base, _ = run_network(x, params, plan=plan)
+    with tracing(launches=True) as col:
+        logits, _ = run_network(x, params, plan=plan)
+    assert torch.equal(logits, base)
+    adds = [n.name for n in plan.graph.nodes if n.op == "add"]
+    assert [s.name for s in col.join_spans] == adds and len(adds) == 16
+    shapes = infer_shapes(plan.graph)
+    for s in col.join_spans:
+        m = shapes[s.name]
+        # add: two maps in, one out; relu: one in, one out; float32
+        assert s.hbm_bytes == 2 * m.size ** 2 * m.channels * 4 * 5
+        assert s.kind == "join" and s.device == "cpu" and s.batch == 2
+        assert s.model == "resnet50" and s.duration_ms >= 0
+    assert [s.start_s for s in col.join_spans] == sorted(
+        s.start_s for s in col.join_spans)
+    assert len(col.spans) == plan.n_launches()
+    event = [e for e in col.events if e.name == "run_network"][-1]
+    assert event.args["joins"] == 16 and event.args["launches"] == len(
+        col.spans)
+
+
+def test_join_bytes_without_a_relu():
+    g = MODELS["resnet18"](input_size=32, num_classes=10)
+    assert residual_joins(g)[0] == ("b0_add", "b0_relu")
+    m = infer_shapes(g)["b0_add"]
+    one = m.size ** 2 * m.channels
+    assert join_bytes(g, "b0_add", None, 3, "bfloat16") == 3 * one * 2 * 3
+    assert join_bytes(g, "b0_add", "b0_relu", 3, "float32") == 3 * one * 4 * 5
+    assert residual_joins(MODELS["vgg16"](input_size=32)) == ()
+
+
+def test_joins_are_timed_only_on_the_launch_route(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a join span was built")
+
+    plan, params, x = _resnet50_plan()
+    monkeypatch.setattr(runner, "JoinSpan", refuse)
+    runner.clear_compiled_cache()
+    run_network(x, params, plan=plan)
+    with tracing() as col:
+        run_network(x, params, plan=plan)
+    assert not col.join_spans and not col.spans
+    with pytest.raises(AssertionError, match="join span"):
+        with tracing(launches=True):
+            run_network(x, params, plan=plan)
+
+
+def test_auto_partition_event_counts_fused_convs_and_joins():
+    with tracing() as col:
+        plan = auto_partition(MODELS["resnet50"](), batch=32)
+        lenet = auto_partition(MODELS["lenet"](), batch=1)
+    first, second = [e.args for e in col.events if e.name == "auto_partition"]
+    assert (first["model"], first["launches"]) == ("resnet50", 43)
+    assert first["fused_convs"] == plan.fused_convs() == 20
+    assert first["joins"] == plan.joins() == 16
+    assert second["joins"] == 0
+    assert second["fused_convs"] == lenet.fused_convs() == sum(
+        p.q_convs for p in lenet.pyramids if p.q_convs >= 2)
+
+
+def test_replay_span_carries_the_plans_counts():
+    plan = auto_partition(MODELS["resnet50"](), batch=32)
+    entry = runner._Compiled(
+        keep=(plan,), graph=SimpleNamespace(replay=lambda: None),
+        static_x=torch.zeros(2, 3), logits=torch.ones(2, 4), skips={},
+        launches={},
+    )
+    with tracing() as col:
+        entry.replay(torch.ones(2, 3))
+    (span,) = col.host_spans
+    assert span.name == "runner.replay"
+    assert span.args == {"fused_convs": 20, "joins": 16}
+
+
+def test_reports_list_the_joins_beside_the_launches():
+    from repro_torch.obs import explain, report
+
+    plan, params, x = _resnet50_plan()
+    with tracing(launches=True) as col:
+        for _ in range(3):
+            run_network(x, params, plan=plan)
+    rows = report.join_rows_from_spans(col.join_spans)
+    assert [r["join"] for r in rows] == [
+        f"resnet50/b{i}_add" for i in range(16)]
+    assert all(r["reps"] == 3 and r["batch"] == 2 for r in rows)
+    lines = []
+    report.format_joins(rows, lines.append, measured_on="cpu")
+    assert lines[0].endswith("measured_ms: cpu") and len(lines) == 19
+    assert lines[-1].startswith("joins: 16, ")
+    report.format_joins([], lines.append)
+    assert len(lines) == 19
+    table = []
+    explain.join_table(plan, table.append)
+    assert len(table) == 18 and table[1].split()[:2] == ["b0_add", "b0_relu"]
+    assert table[-1].startswith("joins: 16, ")
+    assert "convs in launches of two or more" in table[-1]
+    nothing = []
+    explain.join_table(auto_partition(MODELS["lenet"]()), nothing.append)
+    assert nothing == []

@@ -28,6 +28,8 @@ pure-jnp stand-in returning ``reference_network`` logits: its fused kernel
 does not launch on this jax."""
 
 import dataclasses
+import time
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -257,6 +259,70 @@ class TestPadParity:
         ).numpy()
         assert np.array_equal(r1.logits, manual[:2])
         assert np.array_equal(r2.logits, manual[2:3])
+
+
+class TestDispatchDepth:
+    """The drain loop keeps two batches dispatched on a card with every
+    resilience hook off, one otherwise; the batches it serves and their
+    logits do not depend on the depth (run here on the CPU with the depth
+    forced to two)."""
+
+    @staticmethod
+    def _depth(device, inj_enabled=False, **cfg):
+        host = SimpleNamespace(device=torch.device(device),
+                               config=ServeConfig(**cfg))
+        return ServingEngine._depth(host, SimpleNamespace(
+            enabled=inj_enabled))
+
+    @pytest.mark.parametrize("device,inj,cfg,depth", [
+        ("cuda", False, {}, 2),
+        ("cpu", False, {}, 1),
+        ("cuda", True, {}, 1),
+        ("cuda", False, {"guarded": True}, 1),
+        ("cuda", False, {"output_sentinel": True}, 1),
+        ("cuda", False, {"watchdog_factor": 3.0}, 1),
+        ("cuda", False, {"breaker_threshold": 2}, 1),
+        ("cuda", False, {"deadline_aware": True}, 1),
+        ("cuda", False, {"end_skip": False, "buckets": (8, 32)}, 2),
+    ])
+    def test_depth(self, device, inj, cfg, depth):
+        assert self._depth(device, inj, **cfg) == depth
+
+    def test_two_in_flight_serve_what_one_serves(self, monkeypatch):
+        sizes = [1, 4, 2, 1, 3, 2, 2, 4, 1]
+        xs = [_images(r, seed=40 + i) for i, r in enumerate(sizes)]
+        one = _engine()
+        want = one.serve(xs)
+        two = _engine()
+        monkeypatch.setattr(two, "_depth", lambda inj: 2)
+        ids = two.submit_many(xs)
+        t0 = time.perf_counter()
+        done = two.drain()
+        elapsed_ms = (time.perf_counter() - t0) * 1e3
+        got = [two.results[i] for i in ids]
+        assert [r.id for r in done] == ids  # completion order is FIFO
+        for a, b in zip(want, got):
+            assert b.ok and (a.rows, a.bucket) == (b.rows, b.bucket)
+            assert np.array_equal(a.logits, b.logits)
+        walls = sum(st.wall_ms for st in two._stats.values())
+        assert walls <= elapsed_ms
+        assert two.summary()["buckets"] == [
+            {**row, "p50_ms": row2["p50_ms"], "p95_ms": row2["p95_ms"],
+             "imgs_per_s": row2["imgs_per_s"]}
+            for row, row2 in zip(one.summary()["buckets"],
+                                 two.summary()["buckets"])
+        ]
+
+    @pytest.mark.parametrize("dtype", [np.float64, np.float32, np.int32])
+    def test_staged_rows_equal_the_padded_concatenation(self, dtype):
+        eng = _engine()
+        xs = [(_images(r, seed=r) * 10).astype(dtype) for r in (1, 2)]
+        batch = [Request(id=i, x=x, rows=x.shape[0], enqueue_s=0.0)
+                 for i, x in enumerate(xs)]
+        host = eng._padded(batch, 4)
+        want = pad_to_bucket(np.concatenate(xs), 4).astype(np.float32)
+        assert host.dtype == torch.float32
+        assert np.array_equal(host.numpy(), want)
 
 
 # ---------------------------------------------------------------------------
